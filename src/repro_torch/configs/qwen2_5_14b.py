@@ -1,0 +1,11 @@
+"""qwen2.5-14b [dense] — GQA, QKV bias [hf:Qwen/Qwen2.5-*]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2.5-14b", family="dense",
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8,
+    d_ff=13824, vocab=152064, head_dim=128,
+    qkv_bias=True, rope_theta=1_000_000.0,
+    skip_shapes=("long_500k",),
+    skip_reason="pure full attention: O(S^2) at 524k seq (DESIGN.md §5)",
+)

@@ -1,0 +1,4 @@
+"""Model zoo (dense family in this slice)."""
+from repro_torch.models.registry import build_model
+
+__all__ = ["build_model"]

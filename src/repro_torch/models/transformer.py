@@ -1,0 +1,350 @@
+"""Decoder-only transformer LM: GQA attention (optional qk-norm, qkv bias,
+sliding window), swiglu/gelu FFN, KV-cache prefill/decode. Covers the dense
+archs qwen2.5-14b, granite-3-2b, qwen3-4b and stablelm-12b.
+
+Counterpart of ``repro/models/transformer.py``. Layers are an
+``nn.ModuleList`` instead of the stacked (L, ...) scan carrier; weight
+matrices keep the JAX layout (in, out), so ``x @ w`` is the JAX einsum and
+the converter only splits and renames. Single device: no sharding hints.
+
+``attn_impl`` picks the attention at all three call sites (forward,
+prefill, decode): ``"flash"`` (default) is the hand-written CUDA kernel
+through ``kernels.ops.flash_attention``; ``"ref"`` and ``"chunked"`` are the
+plain torch versions of ``models.common``, with forward keeping the JAX
+package's banded dispatch for sliding windows.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import common as cm
+
+ATTN_IMPLS = ("flash", "ref", "chunked")
+
+
+# ----------------------------------------------------------------- params --
+class _Params(nn.Module):
+    """A flat set of named parameters, each tagged with its init style
+    ('normal', 'zeros', 'ones', 'embed', 'scaled'), as ParamSpec does."""
+
+    def __init__(self):
+        super().__init__()
+        self.inits: Dict[str, str] = {}
+
+    def add(self, name: str, shape: Tuple[int, ...], dtype: torch.dtype,
+            init: str, device: torch.device) -> None:
+        self.register_parameter(name, nn.Parameter(
+            torch.empty(shape, dtype=dtype, device=device),
+            requires_grad=False))
+        self.inits[name] = init
+
+
+class Norm(_Params):
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        self.add("scale", (cfg.d_model,), torch.float32, "ones", device)
+        if cfg.norm == "layernorm":
+            self.add("bias", (cfg.d_model,), torch.float32, "zeros", device)
+
+
+class Attention(_Params):
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        d, hd, H, G, dt = (cfg.d_model, cfg.hdim, cfg.n_heads,
+                           cfg.n_kv_heads, cfg.tdtype)
+        self.add("wq", (d, H * hd), dt, "scaled", device)
+        self.add("wk", (d, G * hd), dt, "scaled", device)
+        self.add("wv", (d, G * hd), dt, "scaled", device)
+        self.add("wo", (H * hd, d), dt, "scaled", device)
+        if cfg.qkv_bias:
+            self.add("bq", (H * hd,), dt, "zeros", device)
+            self.add("bk", (G * hd,), dt, "zeros", device)
+            self.add("bv", (G * hd,), dt, "zeros", device)
+        if cfg.qk_norm:
+            self.add("q_norm", (hd,), torch.float32, "ones", device)
+            self.add("k_norm", (hd,), torch.float32, "ones", device)
+
+
+class MLP(_Params):
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        d, f, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
+        width = 2 * f if cfg.act == "swiglu" else f
+        self.add("wi", (d, width), dt, "scaled", device)
+        self.add("wo", (f, d), dt, "scaled", device)
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, device: torch.device):
+        super().__init__()
+        self.ln1 = Norm(cfg, device)
+        self.attn = Attention(cfg, device)
+        self.ln2 = Norm(cfg, device)
+        self.mlp = MLP(cfg, device)
+
+
+def _init_param(p: torch.Tensor, init: str,
+                generator: torch.Generator) -> None:
+    """The distributions of ``repro.models.common.init_param``, on p's
+    device (f32 normal, scaled, then cast)."""
+    if init == "zeros":
+        p.zero_()
+        return
+    if init == "ones":
+        p.fill_(1.0)
+        return
+    if init == "embed":       # 1/sqrt(d) keeps tied-embedding logits O(1)
+        std = 1.0 / math.sqrt(p.shape[-1])
+    elif init == "scaled":    # fan-in scaled
+        std = 1.0 / math.sqrt(p.shape[-2] if p.dim() >= 2 else p.shape[-1])
+    else:                     # 'normal'
+        std = 0.02
+    noise = torch.randn(p.shape, generator=generator, device=p.device,
+                        dtype=torch.float32)
+    p.copy_(noise.mul_(std))
+
+
+# ---------------------------------------------------------------- compute --
+def apply_norm(cfg: ArchConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
+    if cfg.norm == "layernorm":
+        return cm.layer_norm(x, p.scale, p.bias)
+    return cm.rms_norm(x, p.scale)
+
+
+def project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,G,hd), with bias/qk-norm/RoPE."""
+    B, S, _ = x.shape
+    H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, G, hd)
+    v = v.reshape(B, S, G, hd)
+    if cfg.qk_norm:
+        q = cm.rms_norm(q, p.q_norm)
+        k = cm.rms_norm(k, p.k_norm)
+    q = cm.apply_rope(q, positions, cfg.rope_theta)
+    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(p: Attention, o: torch.Tensor) -> torch.Tensor:
+    B, S = o.shape[:2]
+    return o.reshape(B, S, -1) @ p.wo
+
+
+def causal_attention(cfg: ArchConfig, q, k, v, positions: torch.Tensor,
+                     attn_impl: str = "flash") -> torch.Tensor:
+    """Causal self-attention. The kernel takes the window itself; the plain
+    implementations keep the JAX dispatch: banded O(S*w) for sliding
+    windows, else ``attn_impl``."""
+    S = q.shape[1]
+    w = cfg.sliding_window
+    if attn_impl != "flash" and w and S % w == 0 and S >= 2 * w:
+        return cm.attention_banded(q, k, v, window=w, qpos=positions,
+                                   kpos=positions)
+    return cm.make_attention(attn_impl)(q, k, v, causal=True, window=w,
+                                        qpos=positions, kpos=positions)
+
+
+def decode_attention_raw(cfg: ArchConfig, p: Attention, x: torch.Tensor,
+                         k_cache: torch.Tensor, v_cache: torch.Tensor,
+                         pos: int, kpos: torch.Tensor, *,
+                         attn_impl: str = "flash") -> torch.Tensor:
+    """One-token decode against a (B, S_max, G, hd) cache slice.
+
+    Returns the pre-projection heads (B,1,H,hd). Unlike the JAX version,
+    which returns updated copies of a donated cache, this writes the new
+    k/v into ``k_cache``/``v_cache`` in place at slot ``pos % S_max``.
+    ``kpos`` is the (S_max,) stored-position array (-1 = empty slot),
+    maintained by the caller.
+    """
+    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    q, k, v = project_qkv(cfg, p, x, positions)
+    write = pos % k_cache.shape[1]
+    k_cache[:, write] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, write] = v[:, 0].to(v_cache.dtype)
+    return cm.make_attention(attn_impl)(q, k_cache, v_cache, causal=True,
+                                        window=cfg.sliding_window,
+                                        qpos=positions, kpos=kpos)
+
+
+def mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    h = x @ p.wi
+    if cfg.act == "swiglu":
+        gate, up = h.chunk(2, dim=-1)
+        h = F.silu(gate.float()).to(up.dtype) * up
+    else:  # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+    return h @ p.wo
+
+
+def ring_layout(ks: torch.Tensor, vs: torch.Tensor, S: int,
+                cache_len: Optional[int], *, window: int = 0
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Lay out prefill K/V (L,B,S,G,hd) as a ring cache of ``cache_len``
+    slots where slot = position % cache_len (the decode-write invariant).
+
+    Returns (k, v, kpos) with kpos[slot] = stored position or -1.
+    """
+    C = cache_len or (min(S, window) if window else S)
+    if window:
+        C = min(C, window) if S >= window else C
+    dev = ks.device
+    if S >= C:
+        # keep the last C positions, rotated so slot = pos % C
+        shift = (S - C) % C
+        ks = torch.roll(ks[:, :, S - C:], shift, dims=2)
+        vs = torch.roll(vs[:, :, S - C:], shift, dims=2)
+        kpos = torch.roll(torch.arange(S - C, S, dtype=torch.int32,
+                                       device=dev), shift)
+    else:
+        pad = C - S
+        ks = F.pad(ks, (0, 0, 0, 0, 0, pad))
+        vs = F.pad(vs, (0, 0, 0, 0, 0, pad))
+        kpos = torch.cat([torch.arange(S, dtype=torch.int32, device=dev),
+                          torch.full((pad,), -1, dtype=torch.int32,
+                                     device=dev)])
+    return ks, vs, kpos
+
+
+@dataclasses.dataclass
+class DecodeCache:
+    """KV cache of the dense transformer."""
+
+    k: torch.Tensor          # (L, B, S_max, G, hd)
+    v: torch.Tensor
+    kpos: torch.Tensor       # (S_max,) int32 stored positions, -1 = empty
+
+
+class TransformerLM(nn.Module):
+    """Dense decoder-only LM. Parameters are created uninitialised on
+    ``device``; fill them with ``init_params`` or ``load_state_dict``."""
+
+    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
+                 attn_impl: str = "flash"):
+        super().__init__()
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {attn_impl!r} not in {ATTN_IMPLS}")
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.attn_impl = attn_impl
+        V = cfg.padded_vocab
+        self.embed = nn.Parameter(torch.empty((V, cfg.d_model),
+                                              dtype=cfg.tdtype, device=dev),
+                                  requires_grad=False)
+        self.layers = nn.ModuleList(Block(cfg, dev)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = Norm(cfg, dev)
+        if cfg.tie_embeddings:
+            self.lm_head = None
+        else:
+            self.lm_head = nn.Parameter(
+                torch.empty((cfg.d_model, V), dtype=cfg.tdtype, device=dev),
+                requires_grad=False)
+
+    @torch.no_grad()
+    def init_params(self, generator: torch.Generator) -> None:
+        """Fill every parameter with the JAX package's init distributions,
+        drawn from ``generator`` on the parameters' device. The numbers are
+        not JAX's; parity tests carry JAX's params over with
+        ``repro_torch.convert.params_from_jax`` instead."""
+        _init_param(self.embed, "embed", generator)
+        if self.lm_head is not None:
+            _init_param(self.lm_head, "scaled", generator)
+        for mod in self.modules():
+            if isinstance(mod, _Params):
+                for name, init in mod.inits.items():
+                    _init_param(getattr(mod, name), init, generator)
+
+    # ------------------------------------------------------------ forward --
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.embed)
+
+    def layer_body(self, p: Block, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        q, k, v = project_qkv(cfg, p.attn, apply_norm(cfg, p.ln1, x),
+                              positions)
+        o = causal_attention(cfg, q, k, v, positions, self.attn_impl)
+        x = x + attn_out(p.attn, o)
+        return x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+
+    def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        x = apply_norm(cfg, self.final_norm, x)
+        head = self.embed.T if cfg.tie_embeddings else self.lm_head
+        logits = x @ head
+        if cfg.padded_vocab != cfg.vocab:  # mask the padding tail
+            logits[..., cfg.vocab:] = -1e9
+        return logits
+
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        x = self.embed_tokens(tokens)
+        for p in self.layers:
+            x = self.layer_body(p, x, positions)
+        return self.unembed(x)
+
+    # ------------------------------------------------------------- decode --
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor],
+                cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, DecodeCache]:
+        """Run the prompt, return (full logits, filled cache).
+
+        ``cache_len`` reserves headroom for subsequent decode steps; the
+        cache layout is a ring keyed by slot = position % cache_len.
+        """
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        S = tokens.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+        x = self.embed_tokens(tokens)
+        ks: List[torch.Tensor] = []
+        vs: List[torch.Tensor] = []
+        for p in self.layers:
+            q, k, v = project_qkv(cfg, p.attn, apply_norm(cfg, p.ln1, x),
+                                  positions)
+            o = cm.make_attention(self.attn_impl)(
+                q, k, v, causal=True, window=cfg.sliding_window,
+                qpos=positions, kpos=positions)
+            x = x + attn_out(p.attn, o)
+            x = x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+            ks.append(k)
+            vs.append(v)
+        logits = self.unembed(x)
+        k_all, v_all, kpos = ring_layout(torch.stack(ks), torch.stack(vs), S,
+                                         cache_len, window=cfg.sliding_window)
+        return logits, DecodeCache(k=k_all.contiguous(),
+                                   v=v_all.contiguous(), kpos=kpos)
+
+    @torch.no_grad()
+    def decode_step(self, cache: DecodeCache, tokens: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, DecodeCache]:
+        """One decode step: tokens (B,1) at position ``pos``. Updates
+        ``cache`` in place and returns it with the (B,1,V) logits."""
+        cfg = self.cfg
+        x = self.embed_tokens(tokens)
+        cache.kpos[pos % cache.k.shape[2]] = pos
+        for i, p in enumerate(self.layers):
+            o = decode_attention_raw(
+                cfg, p.attn, apply_norm(cfg, p.ln1, x), cache.k[i],
+                cache.v[i], pos, cache.kpos, attn_impl=self.attn_impl)
+            x = x + attn_out(p.attn, o)
+            x = x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+        return self.unembed(x), cache

@@ -1,0 +1,104 @@
+"""Profile the serving path on the card: a warm prefill and a few greedy
+decode steps under ``torch.profiler``, at full width and depth.
+
+Run:  PYTHONPATH=src python -m repro_torch.serve.profile
+
+The configuration is chip_smoke.py's serving run (qwen3-4b, 8 requests of
+512 prompt tokens), with 4 profiled decode steps.
+
+Prints one JSON line: host-clock prefill seconds and decode ms per step
+(without the profiler, after a warm-up), then, under the profiler, the
+device's busy share of each window (kernel time over the window's wall
+time, which the profiler lengthens) and the kernels that take the most
+device time.
+"""
+from __future__ import annotations
+
+import json
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs import get_config
+from repro_torch.device import resolve_device
+from repro_torch.models import build_model
+from repro_torch.train import make_prefill_step, make_serve_step
+
+ARCH, REQUESTS, PROMPT_LEN, STEPS, TOP = "qwen3-4b", 8, 512, 4, 12
+
+
+def _window(fn):
+    """Run fn under the profiler; (wall s, busy share, top kernels). Busy
+    time sums the device's kernel and memcpy records only (not the aten
+    ops that launched them, which would count the same time twice)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name: Dict[str, List[float]] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or \
+                e.name.startswith("Command Buffer"):
+            continue
+        rec = by_name.setdefault(e.name[:90], [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.time_range.elapsed_us()
+    busy_us = sum(us for _, us in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:TOP]
+    kernels = [{"name": n, "count": c, "device_ms": us / 1e3}
+               for n, (c, us) in ranked]
+    return wall, busy_us / 1e6 / wall, kernels
+
+
+@torch.no_grad()
+def main() -> None:
+    dev = resolve_device(None)
+    cfg = get_config(ARCH)
+    B, P, G = REQUESTS, PROMPT_LEN, STEPS + 1
+    model = build_model(cfg, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(0))
+    prompts = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab, (B, P)), dtype=torch.int32, device=dev)
+    prefill = make_prefill_step(model, cache_len=P + G)
+    decode = make_serve_step(model)
+    nxt, cache = prefill({"tokens": prompts})          # warm-up
+    decode(cache, nxt, P)
+    state = {}
+
+    def run_prefill():
+        state["nxt"], state["cache"] = prefill({"tokens": prompts})
+
+    def run_decode():
+        nxt = state["nxt"]
+        for i in range(STEPS):
+            nxt, _, _ = decode(state["cache"], nxt, P + i)
+
+    def host_clock(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    pf_s, dec_s = host_clock(run_prefill), host_clock(run_decode)
+    pf_prof_s, pf_busy, pf_top = _window(run_prefill)
+    dec_prof_s, dec_busy, dec_top = _window(run_decode)
+    print(json.dumps({
+        "device": torch.cuda.get_device_name(0), "arch": cfg.name,
+        "requests": B, "prompt_len": P, "decode_steps": STEPS,
+        "prefill_s": pf_s, "decode_ms_per_step": dec_s / STEPS * 1e3,
+        "profiled_prefill_s": pf_prof_s, "prefill_device_busy": pf_busy,
+        "profiled_decode_ms_per_step": dec_prof_s / STEPS * 1e3,
+        "decode_device_busy": dec_busy,
+        "prefill_top": pf_top, "decode_top": dec_top}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
