@@ -5,14 +5,18 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each failing the run with a non-zero exit:
   1. card    - CUDA present; the card's name and power limit (nvidia-smi)
-  2. build   - compile every CUDA source of the port with nvcc
-  3. kernel  - flash_attention against its plain version on the card
-  4. wiring  - qwen3-4b at full width, 2 layers, f32: prefill + one decode
-               step with the kernel vs with the plain reference attention
-  5. serve   - the main path: JoSS routing -> prefill -> greedy decode of
-               qwen3-4b at full width and depth in bf16; counts launches
-  6. times   - kernel, plain version and SDPA (yardstick only) at the
-               serving shapes, beside the least time the card could take
+  2. build   - compile every CUDA source of the port with nvcc, in parallel
+  3. kernel  - flash_attention and gla_scan against their plain versions on
+               the card, at the serving shapes and at edge cases
+  4. wiring  - qwen3-4b, rwkv6-7b and hymba-1.5b at full width, 2 layers,
+               f32: prefill + one decode step with the kernels vs with the
+               plain versions (attn_impl="ref", gla_impl="chunked")
+  5. serve   - the main paths: JoSS routing -> prefill -> greedy decode of
+               qwen3-4b, rwkv6-7b and hymba-1.5b at full width and depth in
+               bf16; counts each kernel's launches in each run
+  6. times   - each kernel, its plain version and (for attention) SDPA as
+               a yardstick, at the serving shapes, beside the least time
+               the card could take
 Each phase prints JSON lines; the run ends with the nvidia-smi line, the
 kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
@@ -32,6 +36,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gla_scan as gs  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
 
@@ -39,12 +44,17 @@ DEV = "cuda"  # the phases run on the card
 # H100 SXM data sheet (dense): HBM3 rate and bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
-# tolerances of tests/test_kernels.py
+# tolerances of tests/test_kernels.py: flash (atol, rtol), then GLA
 TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}
-# qwen3-4b serving run: 8 requests, 512 prompt tokens, 32 generated
-N_REQ, PROMPT, GEN = 8, 512, 32
-# logits of the f32 wiring check: flash and plain reference attention differ
-# only by f32 summation order (TF32 off), so 1e-3 on O(1) logits is ample
+GLA_TOL = {torch.float32: (7e-4, 2e-3), torch.bfloat16: (0.15, 5e-2)}
+# the serving runs (the main paths): arch -> (requests, prompt, generated).
+# hymba's prompt is twice its 1024-token window, so the window, the ring
+# wrap and the unsorted ring kpos are all on its path
+SERVE = {"qwen3-4b": (8, 512, 32), "rwkv6-7b": (8, 512, 32),
+         "hymba-1.5b": (8, 2048, 32)}
+# logits of the f32 wiring checks: the kernels and the plain versions
+# differ only by f32 summation order (TF32 off), so 1e-3 on O(1) logits is
+# ample
 WIRING_ATOL = 1e-3
 
 
@@ -61,25 +71,55 @@ def rand(shape, dtype, gen):
     return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
 
+def ar(n, off=0):
+    return torch.arange(n, dtype=torch.int32, device=DEV) + off
+
+
+def ring_kpos(C, last):
+    """kpos of a C-slot ring after positions 0..last: slot p % C holds the
+    newest p, -1 where nothing was written."""
+    kpos = torch.full((C,), -1, dtype=torch.int32, device=DEV)
+    p = ar(min(C, last + 1), max(0, last + 1 - C))
+    kpos[p % C] = p
+    return kpos
+
+
+def within(out, ref, atol, rtol):
+    """(max abs error, whether every element is within atol + rtol|ref|)."""
+    diff = (out.float() - ref.float()).abs()
+    excess = (diff - atol - rtol * ref.float().abs()).max().item()
+    return diff.max().item(), excess <= 0
+
+
 # ---------------------------------------------------------------- phase 3 --
-def kernel_cases():
+def flash_cases():
     """(name, B, Sq, Sk, H, G, D, causal, window, qpos, kpos, dtype)."""
-    ar = lambda n, off=0: torch.arange(n, dtype=torch.int32,
-                                       device=DEV) + off
-    P, C = PROMPT, PROMPT + GEN
+    _, P, GEN = SERVE["qwen3-4b"]
+    C = P + GEN
     last = P + GEN - 2                      # position of the last decode step
     ring = torch.where(ar(C) <= last, ar(C), -1).to(torch.int32)
     half = torch.where(ar(C) <= P, ar(C), -1).to(torch.int32)
+    _, HP, HGEN = SERVE["hymba-1.5b"]
+    hlast = HP + HGEN - 2
+    hring = ring_kpos(1024, hlast)          # wrapped: not sorted
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         cases += [
-            ("prefill", N_REQ, P, P, 32, 8, 128, True, 0, ar(P), ar(P), dt),
-            ("decode", N_REQ, 1, C, 32, 8, 128, True, 0,
-             ar(1, last), ring, dt),
-            ("decode_first", N_REQ, 1, C, 32, 8, 128, True, 0,
+            ("prefill", 8, P, P, 32, 8, 128, True, 0, ar(P), ar(P), dt),
+            ("decode", 8, 1, C, 32, 8, 128, True, 0, ar(1, last), ring, dt),
+            ("decode_first", 8, 1, C, 32, 8, 128, True, 0,
              ar(1, P), half, dt),
         ]
     cases += [
+        # hymba's serving shapes: 5 q heads per kv head, window 1024
+        ("hymba_prefill", 8, HP, HP, 25, 5, 64, True, 1024, ar(HP), ar(HP),
+         torch.bfloat16),
+        ("hymba_prefill", 2, HP, HP, 25, 5, 64, True, 1024, ar(HP), ar(HP),
+         torch.float32),
+        ("hymba_decode", 8, 1, 1024, 25, 5, 64, True, 1024, ar(1, hlast),
+         hring, torch.bfloat16),
+        ("hymba_decode", 8, 1, 1024, 25, 5, 64, True, 1024, ar(1, hlast),
+         hring, torch.float32),
         ("window", 2, 256, 256, 4, 2, 64, True, 64, ar(256), ar(256),
          torch.float32),
         ("window_bf16", 2, 256, 256, 4, 2, 64, True, 48, ar(256), ar(256),
@@ -100,11 +140,50 @@ def kernel_cases():
     return cases
 
 
+def gla_cases():
+    """(name, B, T, H, K, V, u, initial state, logw, dtype). logw None is
+    test_kernels.py's draw -exp(clip(randn, -3, 1)); a number is a constant
+    log decay (-60, and -exp(6), RWKV6's strongest)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    return [
+        # the serving shapes: rwkv6 (u-bonus) and hymba's SSM heads (no u)
+        ("rwkv6_prefill", 8, 512, 64, 64, 64, True, False, None, bf16),
+        ("hymba_prefill", 8, 2048, 25, 16, 64, False, False, None, bf16),
+        ("rwkv6_prefill", 2, 512, 64, 64, 64, True, False, None, f32),
+        ("hymba_prefill", 2, 2048, 25, 16, 64, False, False, None, f32),
+        ("ragged", 2, 77, 3, 16, 32, True, True, None, f32),
+        ("ragged_bf16", 3, 77, 4, 64, 64, True, True, None, bf16),
+        ("short", 1, 5, 2, 32, 16, True, True, None, f32),
+        ("initial_state", 2, 128, 4, 64, 64, True, True, None, f32),
+        ("decay_60", 1, 64, 2, 8, 8, True, False, -60.0, f32),
+        ("decay_exp6", 2, 96, 4, 64, 64, True, True, -403.4287934927351,
+         f32),
+        ("kv_8", 2, 64, 3, 8, 8, False, False, None, f32),
+        ("k32_v8_bf16", 2, 100, 2, 32, 8, False, True, None, bf16),
+    ]
+
+
+def gla_inputs(B, T, H, K, V, use_u, init, logw_const, dt, gen):
+    r = rand((B, T, H, K), dt, gen)
+    k = (0.3 * torch.randn((B, T, H, K), generator=gen, device=DEV)).to(dt)
+    v = rand((B, T, H, V), dt, gen)
+    if logw_const is None:
+        logw = -torch.exp(torch.randn((B, T, H, K), generator=gen,
+                                      device=DEV).clamp(-3, 1))
+    else:
+        logw = torch.full((B, T, H, K), logw_const, device=DEV)
+    u = (0.1 * torch.randn((H, K), generator=gen, device=DEV)
+         if use_u else None)
+    s0 = (torch.randn((B, H, K, V), generator=gen, device=DEV)
+          if init else None)
+    return r, k, v, logw, u, s0
+
+
 def phase_kernel():
     gen = torch.Generator(device=DEV).manual_seed(1)
     errs = {}
     for (name, B, Sq, Sk, H, G, D, causal, window, qpos, kpos,
-         dt) in kernel_cases():
+         dt) in flash_cases():
         q = rand((B, Sq, H, D), dt, gen)
         k = rand((B, Sk, G, D), dt, gen)
         v = rand((B, Sk, G, D), dt, gen)
@@ -114,77 +193,131 @@ def phase_kernel():
         ref = fa.flash_attention_ref(q, k, v, **kw)
         torch.cuda.synchronize()
         atol, rtol = TOL[dt]
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        excess = (diff - atol - rtol * ref.float().abs()).max().item()
+        err, ok = within(out, ref, atol, rtol)
         tag = f"{name}/{str(dt).split('.')[-1]}"
-        emit(phase="kernel", case=tag, shape=[B, Sq, Sk, H, G, D],
-             causal=causal, window=window, max_abs_err=err, atol=atol,
-             rtol=rtol)
-        check(excess <= 0, f"kernel disagrees with its plain version: {tag}")
+        emit(phase="kernel", kernel="flash_attention", case=tag,
+             shape=[B, Sq, Sk, H, G, D], causal=causal, window=window,
+             max_abs_err=err, atol=atol, rtol=rtol)
+        check(ok, f"flash_attention disagrees with its plain version: {tag}")
         check(bool(torch.isfinite(out).all()), f"non-finite output: {tag}")
         if name == "masked_rows":  # qpos < 0: rows with no valid key are 0
             check(bool((out[:, :10] == 0).all()), "masked rows not zero")
-        errs[tag] = err
+        errs[f"flash_attention:{tag}"] = err
+        del q, k, v, out, ref
+    for (name, B, T, H, K, V, use_u, init, logw_const,
+         dt) in gla_cases():
+        r, k, v, logw, u, s0 = gla_inputs(B, T, H, K, V, use_u, init,
+                                          logw_const, dt, gen)
+        y, s = gs.gla_scan(r, k, v, logw, u, initial_state=s0)
+        torch.cuda.synchronize()
+        y_ref, s_ref = gs.gla_scan_ref(r, k, v, logw, u, initial_state=s0)
+        torch.cuda.synchronize()
+        atol, rtol = GLA_TOL[dt]
+        err_y, ok_y = within(y, y_ref, atol, rtol)
+        err_s, ok_s = within(s, s_ref, atol, rtol)
+        tag = f"{name}/{str(dt).split('.')[-1]}"
+        emit(phase="kernel", kernel="gla_scan", case=tag,
+             shape=[B, T, H, K, V], u=use_u, initial_state=init,
+             logw=logw_const, y_max_abs_err=err_y,
+             state_max_abs_err=err_s, atol=atol, rtol=rtol)
+        check(ok_y and ok_s, f"gla_scan disagrees with its plain version: "
+                             f"{tag}")
+        check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+              f"non-finite gla_scan output: {tag}")
+        check(y.dtype == v.dtype and s.dtype == torch.float32,
+              f"gla_scan output dtypes: {tag}")
+        errs[f"gla_scan:{tag}"] = max(err_y, err_s)
+        del r, k, v, logw, y, s, y_ref, s_ref
+    torch.cuda.empty_cache()
     return errs
 
 
 # ---------------------------------------------------------------- phase 4 --
+WIRING = {
+    # arch -> (B, S, kernel build kwargs, plain build kwargs)
+    "qwen3-4b": (2, 128, dict(attn_impl="flash"), dict(attn_impl="ref")),
+    "rwkv6-7b": (2, 128, dict(gla_impl="kernel"), dict(gla_impl="chunked")),
+    # S = 2 x window: the plain side takes the banded path, the decode
+    # step sees the wrapped 1024-slot ring
+    "hymba-1.5b": (2, 2048, dict(attn_impl="flash", gla_impl="kernel"),
+                   dict(attn_impl="ref", gla_impl="chunked")),
+}
+
+
 def phase_wiring():
-    cfg = get_config("qwen3-4b").scaled(n_layers=2, dtype="float32")
-    B, S = 2, 128
-    flash = build_model(cfg, device=DEV, attn_impl="flash")
-    flash.init_params(torch.Generator(device=DEV).manual_seed(2))
-    plain = build_model(cfg, device=DEV, attn_impl="ref")
-    plain.load_state_dict(flash.state_dict())
-    toks = torch.randint(0, cfg.vocab, (B, S + 1), device=DEV,
-                         generator=torch.Generator(device=DEV).manual_seed(3))
-    out = {}
-    for name, model in (("flash", flash), ("ref", plain)):
-        lg, cache = model.prefill({"tokens": toks[:, :S]}, cache_len=S + 4)
-        ld, _ = model.decode_step(cache, toks[:, S:S + 1], S)
-        out[name] = (lg[..., :cfg.vocab], ld[..., :cfg.vocab])
-    torch.cuda.synchronize()
-    err_pf = (out["flash"][0] - out["ref"][0]).abs().max().item()
-    err_dec = (out["flash"][1] - out["ref"][1]).abs().max().item()
-    emit(phase="wiring", arch=cfg.name, n_layers=cfg.n_layers,
-         d_model=cfg.d_model, dtype=cfg.dtype, prefill_max_abs_err=err_pf,
-         decode_max_abs_err=err_dec, atol=WIRING_ATOL)
-    check(err_pf <= WIRING_ATOL and err_dec <= WIRING_ATOL,
-          "flash and reference attention disagree inside the model")
-    del flash, plain, out, cache
-    torch.cuda.empty_cache()
+    for arch, (B, S, kern_kw, plain_kw) in WIRING.items():
+        cfg = get_config(arch).scaled(n_layers=2, dtype="float32")
+        kern = build_model(cfg, device=DEV, **kern_kw)
+        kern.init_params(torch.Generator(device=DEV).manual_seed(2))
+        plain = build_model(cfg, device=DEV, **plain_kw)
+        plain.load_state_dict(kern.state_dict())
+        toks = torch.randint(0, cfg.vocab, (B, S + 1), device=DEV,
+                             generator=torch.Generator(device=DEV)
+                             .manual_seed(3))
+        out = {}
+        for name, model in (("kernel", kern), ("plain", plain)):
+            lg, cache = model.prefill({"tokens": toks[:, :S]},
+                                      cache_len=S + 4)
+            ld, _ = model.decode_step(cache, toks[:, S:S + 1], S)
+            out[name] = (lg[..., :cfg.vocab], ld[..., :cfg.vocab])
+            del cache
+        torch.cuda.synchronize()
+        err_pf = (out["kernel"][0] - out["plain"][0]).abs().max().item()
+        err_dec = (out["kernel"][1] - out["plain"][1]).abs().max().item()
+        emit(phase="wiring", arch=cfg.name, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
+             kernel=kern_kw, plain=plain_kw, prefill_max_abs_err=err_pf,
+             decode_max_abs_err=err_dec, atol=WIRING_ATOL)
+        check(err_pf <= WIRING_ATOL and err_dec <= WIRING_ATOL,
+              f"{arch}: the kernels and the plain versions disagree inside "
+              f"the model")
+        del kern, plain, out
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------- phase 5 --
 def phase_serve():
-    cfg = get_config("qwen3-4b")
-    torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
-    res = serve(cfg, N_REQ, PROMPT, GEN, device=DEV, seed=0)
-    launches = fa.flash_attention.launches
-    finite = bool(torch.isfinite(res.logits).all())
-    tok_ok = bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
-    emit(phase="serve", arch=cfg.name, n_layers=cfg.n_layers,
-         d_model=cfg.d_model, dtype=cfg.dtype, requests=N_REQ,
-         prompt_len=PROMPT, gen_len=GEN,
-         routes=[[d.rid, d.pod, d.policy, d.cache_hit]
-                 for d in res.decisions],
-         cache_hit_rate=res.cache_hit_rate,
-         load_imbalance=res.load_imbalance, prefill_s=res.prefill_s,
-         decode_s=res.decode_s, decode_tok_s=res.decode_tok_s,
-         flash_launches=launches, expected_launches=cfg.n_layers * GEN,
-         logits_shape=list(res.logits.shape), logits_finite=finite,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-         tokens_req0=res.tokens[0].tolist())
-    check(launches == cfg.n_layers * GEN,
-          f"flash_attention launched {launches} times, expected "
-          f"{cfg.n_layers} x {GEN}")
-    check(finite, "non-finite logits on the serving path")
-    check(tuple(res.logits.shape) == (N_REQ, GEN - 1, cfg.padded_vocab),
-          "unexpected logits shape")
-    check(tuple(res.tokens.shape) == (N_REQ, GEN) and tok_ok,
-          "generated tokens out of shape or vocab")
+    """Each serving run with both launch counts set to 0 just before it and
+    read just after; returns {arch: {kernel: launches}}."""
+    launches = {}
+    for arch, (N, P, GEN) in SERVE.items():
+        cfg = get_config(arch)
+        attn = cfg.family in ("dense", "hybrid")
+        gla = cfg.family in ("ssm", "hybrid")
+        # attention: every layer at prefill and at each of the G-1 decode
+        # steps; GLA scan: every layer at prefill (decode runs gla_step)
+        want = {"flash_attention": cfg.n_layers * GEN if attn else 0,
+                "gla_scan": cfg.n_layers if gla else 0}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.flash_attention.launches = 0
+        gs.gla_scan.launches = 0
+        res = serve(cfg, N, P, GEN, device=DEV, seed=0)
+        got = {"flash_attention": fa.flash_attention.launches,
+               "gla_scan": gs.gla_scan.launches}
+        finite = bool(torch.isfinite(res.logits).all())
+        tok_ok = bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
+        emit(phase="serve", arch=cfg.name, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, dtype=cfg.dtype, requests=N,
+             prompt_len=P, gen_len=GEN,
+             routes=[[d.rid, d.pod, d.policy, d.cache_hit]
+                     for d in res.decisions],
+             cache_hit_rate=res.cache_hit_rate,
+             load_imbalance=res.load_imbalance, prefill_s=res.prefill_s,
+             decode_s=res.decode_s, decode_tok_s=res.decode_tok_s,
+             launches=got, expected_launches=want,
+             logits_shape=list(res.logits.shape), logits_finite=finite,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+             tokens_req0=res.tokens[0].tolist())
+        check(got == want, f"{arch}: kernel launches {got}, expected {want}")
+        check(finite, f"{arch}: non-finite logits on the serving path")
+        check(tuple(res.logits.shape) == (N, GEN - 1, cfg.padded_vocab),
+              f"{arch}: unexpected logits shape")
+        check(tuple(res.tokens.shape) == (N, GEN) and tok_ok,
+              f"{arch}: generated tokens out of shape or vocab")
+        launches[arch] = got
+        del res
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -203,53 +336,84 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(B, H, G, D, qpos, kpos, causal, itemsize):
-    """Least time (ms) for the function on these inputs: bytes of q, o and
-    the valid keys' k/v over HBM rate, or the valid (q, k) pairs' 4*D
-    flops each over the bf16 peak, whichever is larger."""
+def least_ms(nbytes, flops):
+    """(least time in ms, what bounds it): bytes over the HBM rate or
+    flops over the bf16 tensor-core peak, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def flash_work(B, H, G, D, qpos, kpos, causal, window, itemsize):
+    """Bytes of q, o and the valid keys' k/v, and 4*D flops for each valid
+    (q, k) pair, on these inputs."""
     ok = kpos[None, :] >= 0
     if causal:
         ok = ok & (kpos[None, :] <= qpos[:, None])
+    if window:
+        ok = ok & (kpos[None, :] > qpos[:, None] - window)
     pairs = int(ok.sum().item()) * B * H
     n_keys = int((ok.any(dim=0)).sum().item())
     Sq = qpos.shape[0]
     nbytes = (2 * B * Sq * H * D + 2 * B * n_keys * G * D) * itemsize \
         + 4 * (Sq + kpos.shape[0])
-    flops = 4 * D * pairs
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations"), nbytes, flops
+    return nbytes, 4 * D * pairs
+
+
+def gla_work(B, T, H, K, V, use_u, itemsize, chunk=gs.CHUNK):
+    """Bytes of r, k, v, y (itemsize), logw, u and the final state (f32),
+    and the flops of the chunked form: per chunk of n rows 2nKV inter-chunk,
+    2nKV state update, n(n-1)/2 pairs of 2K (A) and 2V (A @ v), and 2n(K+V)
+    for the diagonal term."""
+    nbytes = (B * T * H * (2 * K + 2 * V) * itemsize + 4 * B * T * H * K
+              + 4 * B * H * K * V + (4 * H * K if use_u else 0))
+    flops = 0
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+        flops += 4 * n * K * V + n * (n - 1) * (K + V) + 2 * n * (K + V)
+    return nbytes, flops * B * H
 
 
 def phase_times():
     gen = torch.Generator(device=DEV).manual_seed(4)
-    cfg = get_config("qwen3-4b")
-    dt, H, G, D, L = (torch.bfloat16, cfg.n_heads, cfg.n_kv_heads, cfg.hdim,
-                      cfg.n_layers)
-    P, C = PROMPT, PROMPT + GEN
-    ar = torch.arange(C, dtype=torch.int32, device=DEV)
-    last = P + GEN - 2                      # position of the last decode step
-    shapes = {
-        # name: (Sq, Sk, qpos, kpos, calls per serving run, buffers, iters)
-        "prefill": (P, P, ar[:P], ar[:P], L, 2, 50),
+    dt = torch.bfloat16
+    per = {}
+    # flash_attention: name -> (arch, Sq, Sk, window, qpos, kpos, calls per
+    # serving run, buffers, iters)
+    qcfg, hcfg = get_config("qwen3-4b"), get_config("hymba-1.5b")
+    _, P, GEN = SERVE["qwen3-4b"]
+    _, HP, HGEN = SERVE["hymba-1.5b"]
+    C = P + GEN
+    last, hlast = P + GEN - 2, HP + HGEN - 2    # the last decode steps
+    flash = {
+        "qwen3_prefill": (qcfg, P, P, 0, ar(P), ar(P), qcfg.n_layers, 2, 50),
         # several K/V buffers in turn, as the layers' caches are: the 18 MB
         # of one would otherwise stay in the 50 MB L2 between launches
-        "decode": (1, C, ar[last:last + 1],
-                   torch.where(ar <= last, ar, -1).to(torch.int32),
-                   L * (GEN - 1), 8, 400),
+        "qwen3_decode": (qcfg, 1, C, 0, ar(1, last),
+                         torch.where(ar(C) <= last, ar(C), -1)
+                         .to(torch.int32), qcfg.n_layers * (GEN - 1), 8,
+                         400),
+        "hymba_prefill": (hcfg, HP, HP, 1024, ar(HP), ar(HP),
+                          hcfg.n_layers, 2, 20),
+        "hymba_decode": (hcfg, 1, 1024, 1024, ar(1, hlast),
+                         ring_kpos(1024, hlast),
+                         hcfg.n_layers * (HGEN - 1), 8, 400),
     }
-    per = {}
-    for name, (Sq, Sk, qpos, kpos, n_calls, nbuf, iters) in shapes.items():
-        bufs = [(rand((N_REQ, Sq, H, D), dt, gen),
-                 rand((N_REQ, Sk, G, D), dt, gen),
-                 rand((N_REQ, Sk, G, D), dt, gen)) for _ in range(nbuf)]
+    for name, (cfg, Sq, Sk, window, qpos, kpos, n_calls, nbuf,
+               iters) in flash.items():
+        N = SERVE[cfg.name][0]
+        H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+        bufs = [(rand((N, Sq, H, D), dt, gen), rand((N, Sk, G, D), dt, gen),
+                 rand((N, Sk, G, D), dt, gen)) for _ in range(nbuf)]
         # SDPA wants (B, H, S, D); the transposed copies are made untimed
         sdpa_bufs = [tuple(t.transpose(1, 2).contiguous() for t in qkv)
                      for qkv in bufs]
         mask = (kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
-        kw = dict(causal=True, window=0, qpos=qpos, kpos=kpos)
-        sdpa_kw = (dict(is_causal=True) if name == "prefill"
+        if window:
+            mask = mask & (kpos[None, :] > qpos[:, None] - window)
+        kw = dict(causal=True, window=window, qpos=qpos, kpos=kpos)
+        sdpa_kw = (dict(is_causal=True) if Sq == Sk and not window
                    else dict(attn_mask=mask))
         kern_in, plain_in = itertools.cycle(bufs), itertools.cycle(bufs)
         lib_in = itertools.cycle(sdpa_bufs)
@@ -259,17 +423,76 @@ def phase_times():
             max(10, iters // 10))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             *next(lib_in), enable_gqa=True, **sdpa_kw), iters)
-        b_ms, b_by, nbytes, flops = bound(N_REQ, H, G, D, qpos, kpos,
-                                          True, 2)
-        per[name] = dict(shape=[N_REQ, Sq, Sk, H, G, D], dtype="bfloat16",
-                         ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by,
-                         bytes=nbytes, flops=flops,
-                         launches_per_serving_run=n_calls)
-        emit(phase="times", kernel="flash_attention", at=name, **per[name])
+        nbytes, flops = flash_work(N, H, G, D, qpos, kpos, True, window, 2)
+        b_ms, b_by = least_ms(nbytes, flops)
+        per[("flash_attention", name)] = dict(
+            shape=[N, Sq, Sk, H, G, D], window=window, dtype="bfloat16",
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+            bound_us=b_ms * 1e3, bound_by=b_by, bytes=nbytes, flops=flops,
+            launches_per_serving_run=n_calls)
+        emit(phase="times", kernel="flash_attention", at=name,
+             **per[("flash_attention", name)])
         del bufs, sdpa_bufs
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    # gla_scan at the two prefill shapes; one set of inputs is ~160-210 MB,
+    # so two in turn keep every launch out of the 50 MB L2
+    for arch, use_u in (("rwkv6-7b", True), ("hymba-1.5b", False)):
+        cfg = get_config(arch)
+        N, T, _ = SERVE[arch]
+        H = cfg.n_heads
+        K = cfg.ssm_state if cfg.family == "hybrid" else cfg.hdim
+        V = cfg.hdim
+        bufs = [gla_inputs(N, T, H, K, V, use_u, False, None, dt, gen)[:5]
+                for _ in range(2)]
+        kern_in, plain_in = itertools.cycle(bufs), itertools.cycle(bufs)
+        ms = time_ms(lambda: gs.gla_scan(*next(kern_in)), 20)
+        plain_ms = time_ms(lambda: gs.gla_scan_ref(*next(plain_in)), 5)
+        nbytes, flops = gla_work(N, T, H, K, V, use_u, 2)
+        b_ms, b_by = least_ms(nbytes, flops)
+        name = arch.split("-")[0] + "_prefill"
+        per[("gla_scan", name)] = dict(
+            shape=[N, T, H, K, V], u=use_u, dtype="bfloat16", ms=ms,
+            plain_ms=plain_ms, library_ms=None,
+            library="none: no single PyTorch call computes a GLA scan",
+            bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by, bytes=nbytes,
+            flops=flops, launches_per_serving_run=cfg.n_layers)
+        emit(phase="times", kernel="gla_scan", at=name,
+             **per[("gla_scan", name)])
+        del bufs
+        torch.cuda.empty_cache()
     return per
+
+
+def kernel_entry(kernel, source, replaces, launches, max_abs_err, per):
+    """One kernel of the kernels line: times are totals over the serving
+    runs' calls (each shape's per-call time x its calls in a run)."""
+    rows = {name: row for (k, name), row in per.items() if k == kernel}
+
+    def total(key):
+        vals = [row[key] for row in rows.values()]
+        if any(v is None for v in vals):
+            return None
+        return sum(row[key] * row["launches_per_serving_run"]
+                   for row in rows.values())
+
+    nbytes, flops = total("bytes"), total("flops")
+    b_ms, b_by = least_ms(nbytes, flops)
+    entry = {
+        "name": kernel, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": sum(launches.values()),
+        "max_abs_err": max_abs_err, "ms": total("ms"),
+        "plain_ms": total("plain_ms"), "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": total("library_ms"),
+        "launches_by_run": launches,
+        "per_call": {name: {k: row[k] for k in
+                            ("shape", "ms", "plain_ms", "library_ms",
+                             "bound_ms", "bound_by",
+                             "launches_per_serving_run")}
+                     for name, row in rows.items()},
+    }
+    if kernel == "gla_scan":
+        entry["library"] = "none: no single PyTorch call computes a GLA scan"
+    return entry
 
 
 def main() -> None:
@@ -300,32 +523,29 @@ def main() -> None:
     launches = phase_serve()
     per = phase_times()
 
-    def total(key):
-        return sum(per[s][key] * per[s]["launches_per_serving_run"]
-                   for s in per)
+    def by_kernel(kernel):
+        return {arch: n[kernel] for arch, n in launches.items() if n[kernel]}
 
-    t_bytes = sum(per[s]["bytes"] * per[s]["launches_per_serving_run"]
-                  for s in per) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(per[s]["flops"] * per[s]["launches_per_serving_run"]
-                for s in per) / BF16_FLOP_PER_S * 1e3
     print(smi, flush=True)
-    # times are totals over one serving run's attention calls (36 at the
-    # prefill shape, 36 x 31 at the decode shape); per_call has each shape
-    emit(kernels=[{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": launches,
-        "max_abs_err": max(errs["prefill/bfloat16"], errs["decode/bfloat16"]),
-        "ms": total("ms"), "plain_ms": total("plain_ms"),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": total("library_ms"),
-        "per_call": {s: {k: per[s][k] for k in
-                         ("ms", "plain_ms", "library_ms", "bound_ms",
-                          "bound_by", "launches_per_serving_run")}
-                     for s in per},
-    }])
+    emit(kernels=[
+        kernel_entry(
+            "flash_attention",
+            "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:27",
+            by_kernel("flash_attention"),
+            max(v for k, v in errs.items()
+                if k.startswith("flash_attention:")
+                and k.endswith("bfloat16")
+                and k.split(":")[1].split("/")[0] in
+                ("prefill", "decode", "hymba_prefill", "hymba_decode")),
+            per),
+        kernel_entry(
+            "gla_scan", "src/repro_torch/kernels/csrc/gla_scan.cu",
+            "src/repro/kernels/gla_scan.py:30", by_kernel("gla_scan"),
+            max(errs["gla_scan:rwkv6_prefill/bfloat16"],
+                errs["gla_scan:hymba_prefill/bfloat16"]),
+            per),
+    ])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

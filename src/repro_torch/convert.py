@@ -7,7 +7,7 @@ the stacked (L, ...) layer leaves and renames; nothing is transposed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -24,24 +24,37 @@ def to_tensor(a: Any) -> torch.Tensor:
     return torch.from_numpy(a.copy())
 
 
+def _leaves(tree: Any, prefix: str) -> Iterator[Tuple[str, Any]]:
+    """(dotted path, array) for every array of a nested dict; a bare array
+    is a leaf of its own path."""
+    if isinstance(tree, Mapping):
+        for name, sub in tree.items():
+            yield from _leaves(sub, f"{prefix}.{name}")
+    else:
+        yield prefix, tree
+
+
 def params_from_jax(cfg: ArchConfig,
                     tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``TransformerLM`` params -> the port's ``state_dict``.
+    """JAX ``TransformerLM`` (or subclass: rwkv6, hymba) params -> the
+    port's ``state_dict``.
 
-    Load the result with ``model.load_state_dict(sd)``; tensors come back on
-    the CPU and are copied onto the model's device by the load.
+    Every leaf under ``layers`` is stacked (L, ...), whatever its depth in
+    the tree (hymba's bare ``attn_norm``, rwkv6's ``att.mu`` (L, 5, d));
+    layer i's slice becomes ``layers.{i}.<path>``. Load the result with
+    ``model.load_state_dict(sd)``; tensors come back on the CPU and are
+    copied onto the model's device by the load.
     """
     sd: Dict[str, torch.Tensor] = {"embed": to_tensor(tree["embed"])}
     if not cfg.tie_embeddings:
         sd["lm_head"] = to_tensor(tree["lm_head"])
-    for name, leaf in tree["final_norm"].items():
-        sd[f"final_norm.{name}"] = to_tensor(leaf)
-    for group, leaves in tree["layers"].items():
-        for name, stacked in leaves.items():
-            stacked = np.asarray(stacked)
-            if stacked.shape[0] != cfg.n_layers:
-                raise ValueError(f"layers.{group}.{name}: leading dim "
-                                 f"{stacked.shape[0]} != {cfg.n_layers}")
-            for i in range(cfg.n_layers):
-                sd[f"layers.{i}.{group}.{name}"] = to_tensor(stacked[i])
+    for path, leaf in _leaves(tree["final_norm"], "final_norm"):
+        sd[path] = to_tensor(leaf)
+    for path, stacked in _leaves(tree["layers"], ""):
+        stacked = np.asarray(stacked)
+        if stacked.shape[0] != cfg.n_layers:
+            raise ValueError(f"layers{path}: leading dim {stacked.shape[0]} "
+                             f"!= {cfg.n_layers}")
+        for i in range(cfg.n_layers):
+            sd[f"layers.{i}{path}"] = to_tensor(stacked[i])
     return sd

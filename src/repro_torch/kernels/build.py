@@ -98,3 +98,14 @@ def load(name: str) -> ctypes.CDLL:
             _finish(name, *_start(name))
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+def raise_on_error(lib: ctypes.CDLL, err: int, kernel: str) -> None:
+    """Raise if a launch function returned a non-zero ``cudaError_t``; each
+    library exports ``repro_cuda_error_string`` for the message."""
+    if err:
+        fn = lib.repro_cuda_error_string
+        fn.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{kernel} kernel launch failed: "
+                           f"{fn(err).decode()}")

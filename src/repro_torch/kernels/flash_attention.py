@@ -116,11 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              kpos.data_ptr(), out.data_ptr(), B, Sq, Sk, H, G, D,
              int(causal), int(window), 1.0 / math.sqrt(D),
              _DTYPE_CODE[q.dtype], q.device.index or 0, stream)
-    if err:
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        msg = lib.repro_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash_attention kernel launch failed: {msg}")
+    build.raise_on_error(lib, err, "flash_attention")
     flash_attention.launches += 1
     return out
 

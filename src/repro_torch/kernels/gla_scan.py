@@ -1,0 +1,118 @@
+"""Chunked GLA scan: the hand-written CUDA kernel and its plain PyTorch
+version.
+
+Counterpart of ``repro/kernels/gla_scan.py::gla_pallas`` (the Pallas TPU
+kernel). The port takes the model layout directly, r/k/logw (B, T, H, K)
+and v (B, T, H, V), with none of the Pallas wrapper's (B*H, T, d)
+transposes; u (H, K) or None; an optional f32 ``initial_state`` (B, H, K,
+V), which the Pallas kernel lacks and ``gla_chunked`` has. Returns y (B, T,
+H, V) in v's dtype and the final f32 state (B, H, K, V). Any T >= 1: the
+kernel masks a ragged last chunk itself.
+
+On a CPU tensor the wrapper runs ``gla_scan_ref``. On a CUDA tensor it
+launches the kernel (``csrc/gla_scan.cu``) or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.models.recurrence import gla_chunked
+
+CHUNK = 32                      # the kernel's chunk length
+DIMS = (8, 16, 32, 64)          # key and value widths the kernel takes
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def gla_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 logw: torch.Tensor, u: Optional[torch.Tensor] = None, *,
+                 initial_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel: ``gla_chunked`` in chunks of 32 with
+    the kernel's cw_prev (``shifted_prev=True``), T padded up to a multiple
+    of 32 with r = k = v = logw = 0, which leaves the state as it is (as the
+    kernel masks its last chunk)."""
+    T = r.shape[1]
+    pad = -T % CHUNK
+    if pad:
+        r, k, v, logw = (F.pad(x, (0, 0, 0, 0, 0, pad))
+                         for x in (r, k, v, logw))
+    y, state = gla_chunked(r, k, v, logw, u, chunk=CHUNK,
+                           initial_state=initial_state, shifted_prev=True)
+    return y[:, :T], state
+
+
+def _check(r, k, v, logw, u, s0) -> None:
+    ts = [("r", r), ("k", k), ("v", v), ("logw", logw)]
+    if u is not None:
+        ts.append(("u", u))
+    if s0 is not None:
+        ts.append(("initial_state", s0))
+    if len({t.device for _, t in ts}) != 1:
+        raise ValueError("r, k, v, logw, u and initial_state must share one "
+                         "device")
+    if r.dtype not in _DTYPE_CODE or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"r/k/v must all be float32 or bfloat16, got "
+                        f"{r.dtype}/{k.dtype}/{v.dtype}")
+    for name, t in ts[3:]:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if r.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"need r/k/logw (B,T,H,K) and v (B,T,H,V); got "
+                         f"{tuple(r.shape)} and {tuple(v.shape)}")
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    if k.shape != r.shape or logw.shape != r.shape or \
+            v.shape[:3] != r.shape[:3]:
+        raise ValueError(f"r {tuple(r.shape)}, k {tuple(k.shape)}, logw "
+                         f"{tuple(logw.shape)} and v {tuple(v.shape)} do not "
+                         f"fit")
+    if K not in DIMS or V not in DIMS:
+        raise ValueError(f"K={K} and V={V} must be in {DIMS}")
+    if min(B, T, H) < 1 or B > 65535:
+        raise ValueError(f"unsupported sizes B={B} T={T} H={H}")
+    if u is not None and u.shape != (H, K):
+        raise ValueError(f"u must be (H, K) = {(H, K)}, got {tuple(u.shape)}")
+    if s0 is not None and s0.shape != (B, H, K, V):
+        raise ValueError(f"initial_state must be (B, H, K, V) = "
+                         f"{(B, H, K, V)}, got {tuple(s0.shape)}")
+    for name, t in ts:
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: Optional[torch.Tensor] = None, *,
+             initial_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/logw (B,T,H,K), v (B,T,H,V) -> (y (B,T,H,V), state (B,H,K,V))."""
+    if r.device.type == "cpu":
+        return gla_scan_ref(r, k, v, logw, u, initial_state=initial_state)
+    if r.device.type != "cuda":
+        raise ValueError(f"no gla_scan for device {r.device}")
+    _check(r, k, v, logw, u, initial_state)
+    lib = build.load("gla_scan")
+    fn = lib.repro_gla_scan_fwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, T, H, K = r.shape
+    V = v.shape[-1]
+    y = torch.empty_like(v)
+    state = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
+    stream = torch.cuda.current_stream(r.device).cuda_stream
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+             None if u is None else u.data_ptr(),
+             None if initial_state is None else initial_state.data_ptr(),
+             y.data_ptr(), state.data_ptr(), B, T, H, K, V,
+             _DTYPE_CODE[r.dtype], r.device.index or 0, stream)
+    build.raise_on_error(lib, err, "gla_scan")
+    gla_scan.launches += 1
+    return y, state
+
+
+gla_scan.launches = 0

@@ -2,15 +2,17 @@
 ``repro/kernels/ops.py``).
 
 The kernels take the model layout, so no transpose or GQA broadcast
-happens here: kv head h // (H/G) is read by index inside the kernel.
+happens here: kv head h // (H/G) is read by index inside the attention
+kernel, and the GLA scan reads (B, T, H, K/V) as it is.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gla_scan as _gla
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -26,3 +28,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window,
                                qpos=qpos, kpos=kpos)
+
+
+def gla(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        logw: torch.Tensor, u: Optional[torch.Tensor] = None, *,
+        initial_state: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked GLA recurrence (RWKV6 / SSM heads), any T >= 1. logw, u and
+    the state are taken in f32; returns (y in v's dtype, f32 state)."""
+    f32 = torch.float32
+    if u is not None:
+        u = u.to(f32).contiguous()
+    if initial_state is not None:
+        initial_state = initial_state.to(f32).contiguous()
+    return _gla.gla_scan(r.contiguous(), k.contiguous(), v.contiguous(),
+                         logw.to(f32).contiguous(), u,
+                         initial_state=initial_state)

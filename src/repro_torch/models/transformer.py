@@ -1,6 +1,8 @@
 """Decoder-only transformer LM: GQA attention (optional qk-norm, qkv bias,
 sliding window), swiglu/gelu FFN, KV-cache prefill/decode. Covers the dense
-archs qwen2.5-14b, granite-3-2b, qwen3-4b and stablelm-12b.
+archs qwen2.5-14b, granite-3-2b, qwen3-4b and stablelm-12b, and is the base
+of ``rwkv6.Rwkv6LM`` and ``hymba.HymbaLM``, which override ``make_block``,
+``layer_body``, ``prefill`` and ``decode_step``.
 
 Counterpart of ``repro/models/transformer.py``. Layers are an
 ``nn.ModuleList`` instead of the stacked (L, ...) scan carrier; weight
@@ -244,7 +246,7 @@ class TransformerLM(nn.Module):
         self.embed = nn.Parameter(torch.empty((V, cfg.d_model),
                                               dtype=cfg.tdtype, device=dev),
                                   requires_grad=False)
-        self.layers = nn.ModuleList(Block(cfg, dev)
+        self.layers = nn.ModuleList(self.make_block(dev)
                                     for _ in range(cfg.n_layers))
         self.final_norm = Norm(cfg, dev)
         if cfg.tie_embeddings:
@@ -253,6 +255,11 @@ class TransformerLM(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.empty((cfg.d_model, V), dtype=cfg.tdtype, device=dev),
                 requires_grad=False)
+
+    def make_block(self, device: torch.device) -> nn.Module:
+        """One layer's parameter modules; subclasses return their own.
+        ``init_params`` fills every ``_Params`` module found under it."""
+        return Block(self.cfg, device)
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> None:

@@ -1,6 +1,8 @@
-"""Serving flow: batched prefill + greedy decode with a ring KV cache,
-fronted by the JoSS request router (policy A for fresh sessions, cache
-affinity for follow-ups). The port of ``examples/serve_lm.py``.
+"""Serving flow: batched prefill + greedy decode, fronted by the JoSS
+request router (policy A for fresh sessions, cache affinity for
+follow-ups). The port of ``examples/serve_lm.py``. The model's cache is
+whatever its family keeps: a ring KV cache (dense), an O(1) GLA state
+(rwkv6), or a sliding-window ring plus the SSM state (hymba).
 
 Run:  PYTHONPATH=src python -m repro_torch.serve.lm [--requests 8]
 """
@@ -65,7 +67,8 @@ def serve(cfg: ArchConfig, n_requests: int, prompt_len: int, gen_len: int,
           params: Optional[Dict[str, torch.Tensor]] = None,
           prompts: Optional[np.ndarray] = None) -> ServeResult:
     """Route ``n_requests`` requests, prefill their prompts with
-    ``cache_len = P + G`` and run G-1 greedy decode steps.
+    ``cache_len = P + G`` (rwkv6 ignores it; hymba's ring keeps at most
+    its window) and run G-1 greedy decode steps.
 
     ``params`` is a state dict (e.g. from ``convert.params_from_jax``);
     without it the weights are drawn on the device from a generator seeded

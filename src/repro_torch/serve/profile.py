@@ -1,10 +1,13 @@
 """Profile the serving path on the card: a warm prefill and a few greedy
 decode steps under ``torch.profiler``, at full width and depth.
 
-Run:  PYTHONPATH=src python -m repro_torch.serve.profile
+Run:  PYTHONPATH=src python -m repro_torch.serve.profile [--arch ARCH]
+                                                        [--prompt-len P]
 
-The configuration is chip_smoke.py's serving run (qwen3-4b, 8 requests of
-512 prompt tokens), with 4 profiled decode steps.
+The configuration is one of chip_smoke.py's serving runs: 8 requests of
+``--prompt-len`` tokens (512 by default; chip_smoke.py gives hymba-1.5b
+2048) of ``--arch`` (qwen3-4b by default, or rwkv6-7b, hymba-1.5b), with 4
+profiled decode steps.
 
 Prints one JSON line: host-clock prefill seconds and decode ms per step
 (without the profiler, after a warm-up), then, under the profiler, the
@@ -14,9 +17,10 @@ device time.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -28,7 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.train import make_prefill_step, make_serve_step
 
-ARCH, REQUESTS, PROMPT_LEN, STEPS, TOP = "qwen3-4b", 8, 512, 4, 12
+REQUESTS, STEPS, TOP = 8, 4, 12
 
 
 def _window(fn):
@@ -58,10 +62,14 @@ def _window(fn):
 
 
 @torch.no_grad()
-def main() -> None:
+def main(argv: Optional[List[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--prompt-len", type=int, default=512)
+    args = ap.parse_args(argv)
     dev = resolve_device(None)
-    cfg = get_config(ARCH)
-    B, P, G = REQUESTS, PROMPT_LEN, STEPS + 1
+    cfg = get_config(args.arch)
+    B, P, G = REQUESTS, args.prompt_len, STEPS + 1
     model = build_model(cfg, device=dev)
     model.init_params(torch.Generator(device=dev).manual_seed(0))
     prompts = torch.as_tensor(np.random.RandomState(0).randint(

@@ -14,6 +14,7 @@ from repro.kernels.flash_attention import (  # noqa: E402
 from repro_torch.device import resolve_device  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import gla_scan as gs  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
 ATTN_SHAPES = [
@@ -238,3 +239,102 @@ def test_wrapper_alignment_rule():
     odd = torch.zeros(4 * 2 * 16 + 1)[1:].view(1, 4, 2, 16)
     with pytest.raises(ValueError, match="aligned"):
         fa._check(odd, q, q, pos, pos)
+
+
+def test_build_all_picks_up_every_source_of_the_package(tmp_path,
+                                                        monkeypatch):
+    """The real csrc/ holds both kernels; build_all compiles each with its
+    own nvcc (a fake one here) into the build directory."""
+    assert build.sources() == ["flash_attention", "gla_scan"]
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    calls = tmp_path / "calls"
+    bindir = _fake_nvcc(tmp_path, f'echo "$out" >> {calls}; echo lib > "$out"')
+    monkeypatch.setenv("PATH", f"{bindir}:/usr/bin:/bin")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    libs = build.build_all()
+    assert [p.name.split("-")[0] for p in libs] == ["libflash_attention",
+                                                     "libgla_scan"]
+    assert all(p.parent == build.BUILD_DIR for p in libs)
+    assert len(calls.read_text().split()) == 2
+
+
+def _gla_args(B=1, T=8, H=2, K=16, V=16, dtype=torch.float32):
+    return (torch.zeros((B, T, H, K), dtype=dtype),
+            torch.zeros((B, T, H, K), dtype=dtype),
+            torch.zeros((B, T, H, V), dtype=dtype),
+            torch.zeros((B, T, H, K)), None, None)
+
+
+def test_gla_wrapper_rejects_what_the_kernel_does_not_take():
+    """The CUDA path's argument checks run on any device."""
+    gs._check(*_gla_args())
+    gs._check(*_gla_args(dtype=torch.bfloat16))
+    r, k, v, w, _, _ = _gla_args()
+    with pytest.raises(ValueError, match="must be in"):
+        gs._check(*_gla_args(K=24))
+    with pytest.raises(ValueError, match="must be in"):
+        gs._check(*_gla_args(V=128))
+    with pytest.raises(ValueError, match="do not fit"):
+        gs._check(r, k[:, :4], v, w, None, None)
+    with pytest.raises(ValueError, match="do not fit"):
+        gs._check(r, k, v[:, :, :1], w, None, None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gs._check(*_gla_args(dtype=torch.float16))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        gs._check(r, k.bfloat16(), v, w, None, None)
+    with pytest.raises(TypeError, match="logw must be float32"):
+        gs._check(r, k, v, w.bfloat16(), None, None)
+    with pytest.raises(TypeError, match="u must be float32"):
+        gs._check(r, k, v, w, torch.zeros((2, 16), dtype=torch.float64),
+                  None)
+    with pytest.raises(ValueError, match="u must be"):
+        gs._check(r, k, v, w, torch.zeros((16, 2)), None)
+    with pytest.raises(ValueError, match="initial_state must be"):
+        gs._check(r, k, v, w, None, torch.zeros((1, 2, 16, 8)))
+    with pytest.raises(ValueError, match="contiguous"):
+        gs._check(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  w.transpose(1, 2), None, None)
+    with pytest.raises(ValueError, match="need r/k/logw"):
+        gs._check(r[0], k[0], v[0], w[0], None, None)
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports a CUDA device, to drive the wrappers'
+    CUDA path on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("kernel", ["gla_scan", "flash_attention"])
+def test_cuda_tensor_launches_or_raises_never_falls_back(kernel, tmp_path,
+                                                         monkeypatch):
+    """On a CUDA tensor the wrappers (and ops) build and launch the kernel
+    or raise; here nvcc is missing, so they raise, and the plain version is
+    never run and the launch count never moves."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    monkeypatch.setenv("PATH", str(tmp_path / "empty"))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+
+    def no_fallback(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    if kernel == "gla_scan":
+        monkeypatch.setattr(gs, "gla_scan_ref", no_fallback)
+        args = [t.as_subclass(_OnCuda) for t in _gla_args()[:4]]
+        u = torch.zeros((2, 16)).as_subclass(_OnCuda)
+        calls = [lambda: gs.gla_scan(*args, u),
+                 lambda: ops.gla(*args, u)]
+        counter = gs.gla_scan
+    else:
+        monkeypatch.setattr(fa, "flash_attention_ref", no_fallback)
+        q = torch.zeros((1, 4, 2, 16)).as_subclass(_OnCuda)
+        pos = torch.arange(4, dtype=torch.int32).as_subclass(_OnCuda)
+        calls = [lambda: fa.flash_attention(q, q, q, qpos=pos, kpos=pos)]
+        counter = fa.flash_attention
+    before = counter.launches
+    for call in calls:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            call()
+    assert counter.launches == before

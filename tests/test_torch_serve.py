@@ -114,6 +114,36 @@ def test_serve_matches_serve_lm_flow():
     assert res.prefill_s > 0 and res.decode_s > 0
 
 
+@pytest.mark.parametrize("arch,P", [("rwkv6-7b", 16), ("hymba-1.5b", 40)])
+def test_serve_recurrent_families_match_serve_lm_flow(arch, P):
+    """serve() on the rwkv6 and hymba smoke configs gives the tokens of the
+    examples/serve_lm.py flow in JAX (hymba's 40-token prompt passes its
+    32-token smoke window, so the ring wraps)."""
+    B, G = 4, 6
+    jcfg = jax_get_config(arch).smoke()
+    model = jax_build(jcfg)
+    params = model.init(jax.random.PRNGKey(0))
+    prompts = np.random.RandomState(0).randint(0, jcfg.vocab, (B, P))
+    prefill = jax.jit(make_prefill_step(model, cache_len=P + G))
+    decode = jax.jit(make_serve_step(model))
+    next_tok, cache = prefill(params, {"tokens": jnp.asarray(prompts,
+                                                             jnp.int32)})
+    out = [next_tok]
+    for i in range(G - 1):
+        next_tok, _, cache = decode(params, cache, out[-1], jnp.int32(P + i))
+        out.append(next_tok)
+    want = np.asarray(jnp.concatenate(out, axis=1))
+
+    tcfg = get_config(arch).smoke()
+    res = serve(tcfg, B, P, G, device="cpu",
+                params=params_from_jax(
+                    tcfg, jax.tree_util.tree_map(np.asarray, params)),
+                prompts=prompts)
+    np.testing.assert_array_equal(res.tokens.numpy(), want)
+    assert tuple(res.logits.shape) == (B, G - 1, tcfg.padded_vocab)
+    assert bool(torch.isfinite(res.logits).all())
+
+
 def test_serve_initialises_from_seed_on_the_device():
     tcfg = get_config("granite-3-2b").smoke()
     a = serve(tcfg, 2, 8, 3, device="cpu", seed=5)
