@@ -6,17 +6,23 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each failing the run with a non-zero exit:
   1. card    - CUDA present; the card's name and power limit (nvidia-smi)
   2. build   - compile every CUDA source of the port with nvcc, in parallel
-  3. kernel  - flash_attention and gla_scan against their plain versions on
-               the card, at the serving shapes and at edge cases
+  3. kernel  - flash_attention (each case on the kernel the wrapper
+               chooses, tc / split / simt; split at several n_split; the
+               simt kernel also at the bf16 serving shapes) and
+               gla_scan against their plain versions on the card, at the
+               serving shapes and at edge cases
   4. wiring  - qwen3-4b, rwkv6-7b and hymba-1.5b at full width, 2 layers,
                f32: prefill + one decode step with the kernels vs with the
                plain versions (attn_impl="ref", gla_impl="chunked")
   5. serve   - the main paths: JoSS routing -> prefill -> greedy decode of
                qwen3-4b, rwkv6-7b and hymba-1.5b at full width and depth in
-               bf16; counts each kernel's launches in each run
+               bf16; counts each kernel's launches in each run, and the
+               flash launches by variant (prefill tc, decode split)
   6. times   - each kernel, its plain version and (for attention) SDPA as
                a yardstick, at the serving shapes, beside the least time
-               the card could take
+               the card could take: eager calls timed by CUDA events (ms)
+               and the host's cost a call; flash also with the simt kernel
+               and in CUDA graphs (device_ms), in turns in the same run
 Each phase prints JSON lines; the run ends with the nvidia-smi line, the
 kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
@@ -58,6 +64,10 @@ SERVE = {"qwen3-4b": (8, 512, 32), "rwkv6-7b": (8, 512, 32),
 WIRING_ATOL = 1e-3
 
 
+def n_sm() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
 def emit(**kw) -> None:
     print(json.dumps(kw), flush=True)
 
@@ -93,7 +103,8 @@ def within(out, ref, atol, rtol):
 
 # ---------------------------------------------------------------- phase 3 --
 def flash_cases():
-    """(name, B, Sq, Sk, H, G, D, causal, window, qpos, kpos, dtype)."""
+    """(name, B, Sq, Sk, H, G, D, causal, window, qpos, kpos, dtype,
+    variant): variant None is the one the wrapper chooses."""
     _, P, GEN = SERVE["qwen3-4b"]
     C = P + GEN
     last = P + GEN - 2                      # position of the last decode step
@@ -102,42 +113,77 @@ def flash_cases():
     _, HP, HGEN = SERVE["hymba-1.5b"]
     hlast = HP + HGEN - 2
     hring = ring_kpos(1024, hlast)          # wrapped: not sorted
+    f32, bf16 = torch.float32, torch.bfloat16
     cases = []
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (bf16, f32):
         cases += [
-            ("prefill", 8, P, P, 32, 8, 128, True, 0, ar(P), ar(P), dt),
-            ("decode", 8, 1, C, 32, 8, 128, True, 0, ar(1, last), ring, dt),
+            ("prefill", 8, P, P, 32, 8, 128, True, 0, ar(P), ar(P), dt, None),
+            ("decode", 8, 1, C, 32, 8, 128, True, 0, ar(1, last), ring, dt,
+             None),
             ("decode_first", 8, 1, C, 32, 8, 128, True, 0,
-             ar(1, P), half, dt),
+             ar(1, P), half, dt, None),
+            # decode: one key; keys below one tile; a ragged last tile; a row
+            # with every key masked (must be exactly 0)
+            ("split_sk1", 2, 1, 1, 8, 2, 64, True, 0, ar(1), ar(1), dt, None),
+            ("split_short", 2, 1, 40, 8, 2, 128, True, 0, ar(1, 39), ar(40),
+             dt, None),
+            ("split_ragged", 3, 1, 200, 32, 8, 128, True, 0, ar(1, 199),
+             ar(200), dt, None),
+            ("split_all_masked", 2, 1, 300, 10, 2, 64, True, 0, ar(1, -5),
+             ar(300), dt, None),
         ]
     cases += [
         # hymba's serving shapes: 5 q heads per kv head, window 1024
         ("hymba_prefill", 8, HP, HP, 25, 5, 64, True, 1024, ar(HP), ar(HP),
-         torch.bfloat16),
+         bf16, None),
         ("hymba_prefill", 2, HP, HP, 25, 5, 64, True, 1024, ar(HP), ar(HP),
-         torch.float32),
+         f32, None),
         ("hymba_decode", 8, 1, 1024, 25, 5, 64, True, 1024, ar(1, hlast),
-         hring, torch.bfloat16),
+         hring, bf16, None),
         ("hymba_decode", 8, 1, 1024, 25, 5, 64, True, 1024, ar(1, hlast),
-         hring, torch.float32),
-        ("window", 2, 256, 256, 4, 2, 64, True, 64, ar(256), ar(256),
-         torch.float32),
+         hring, f32, None),
+        ("window", 2, 256, 256, 4, 2, 64, True, 64, ar(256), ar(256), f32,
+         None),
         ("window_bf16", 2, 256, 256, 4, 2, 64, True, 48, ar(256), ar(256),
-         torch.bfloat16),
-        ("cross", 1, 128, 384, 2, 1, 64, False, 0, ar(128), ar(384),
-         torch.float32),
-        ("ragged", 2, 77, 203, 6, 3, 32, True, 0, ar(77, 126), ar(203),
-         torch.float32),
+         bf16, None),
+        ("cross", 1, 128, 384, 2, 1, 64, False, 0, ar(128), ar(384), f32,
+         None),
+        ("ragged", 2, 77, 203, 6, 3, 32, True, 0, ar(77, 126), ar(203), f32,
+         None),
         ("ragged_bf16", 3, 45, 100, 8, 2, 64, True, 0, ar(45, 55), ar(100),
-         torch.bfloat16),
+         bf16, None),
         ("masked_rows", 1, 40, 64, 2, 2, 32, True, 0, ar(40, -10),
-         ar(64), torch.float32),
-        ("head_dim_16", 2, 64, 64, 4, 2, 16, True, 0, ar(64), ar(64),
-         torch.float32),
+         ar(64), f32, None),
+        ("masked_rows_bf16", 1, 40, 64, 2, 2, 32, True, 0, ar(40, -10),
+         ar(64), bf16, None),
+        ("head_dim_16", 2, 64, 64, 4, 2, 16, True, 0, ar(64), ar(64), f32,
+         None),
         ("head_dim_16_bf16", 2, 32, 96, 4, 1, 16, False, 0, ar(32), ar(96),
-         torch.bfloat16),
+         bf16, None),
+        # the tensor-core kernel at each head dim, 5 q heads a kv head
+        # (fragments span positions), ragged Sq and Sk
+        ("tc_d16", 2, 100, 100, 10, 2, 16, True, 0, ar(100), ar(100), bf16,
+         None),
+        ("tc_d32", 3, 77, 150, 10, 2, 32, True, 0, ar(77, 73), ar(150),
+         bf16, None),
+        ("tc_d64", 2, 130, 200, 10, 2, 64, True, 40, ar(130, 70), ar(200),
+         bf16, None),
+        ("tc_d128", 1, 200, 300, 10, 2, 128, True, 100, ar(200, 251),
+         ring_kpos(300, 450), bf16, None),
     ]
+    # the simt kernel (the first design) at the bf16 serving shapes, as
+    # phase 6 times it
+    cases += [c[:-1] + ("simt",) for c in cases
+              if c[0] in ("prefill", "decode", "hymba_prefill",
+                          "hymba_decode") and c[11] == bf16]
     return cases
+
+
+def split_counts(B, G, Sk):
+    """The split kernel's n_split in phase 3: 1, the chosen one, and more
+    ranges than tiles (empty ranges)."""
+    chosen = fa.decode_splits(B, G, Sk, n_sm())
+    return sorted({1, chosen, -(-Sk // fa.TILE_KEYS) + 3})
 
 
 def gla_cases():
@@ -182,28 +228,40 @@ def gla_inputs(B, T, H, K, V, use_u, init, logw_const, dt, gen):
 def phase_kernel():
     gen = torch.Generator(device=DEV).manual_seed(1)
     errs = {}
-    for (name, B, Sq, Sk, H, G, D, causal, window, qpos, kpos,
-         dt) in flash_cases():
+    for (name, B, Sq, Sk, H, G, D, causal, window, qpos, kpos, dt,
+         variant) in flash_cases():
         q = rand((B, Sq, H, D), dt, gen)
         k = rand((B, Sk, G, D), dt, gen)
         v = rand((B, Sk, G, D), dt, gen)
         kw = dict(causal=causal, window=window, qpos=qpos, kpos=kpos)
-        out = fa.flash_attention(q, k, v, **kw)
-        torch.cuda.synchronize()
         ref = fa.flash_attention_ref(q, k, v, **kw)
-        torch.cuda.synchronize()
-        atol, rtol = TOL[dt]
-        err, ok = within(out, ref, atol, rtol)
-        tag = f"{name}/{str(dt).split('.')[-1]}"
-        emit(phase="kernel", kernel="flash_attention", case=tag,
-             shape=[B, Sq, Sk, H, G, D], causal=causal, window=window,
-             max_abs_err=err, atol=atol, rtol=rtol)
-        check(ok, f"flash_attention disagrees with its plain version: {tag}")
-        check(bool(torch.isfinite(out).all()), f"non-finite output: {tag}")
-        if name == "masked_rows":  # qpos < 0: rows with no valid key are 0
-            check(bool((out[:, :10] == 0).all()), "masked rows not zero")
-        errs[f"flash_attention:{tag}"] = err
-        del q, k, v, out, ref
+        variant = variant or fa.choose_variant(dt, Sq)
+        counts = split_counts(B, G, Sk) if variant == "split" else [None]
+        for n_split in counts:
+            out = fa.flash_attention(q, k, v, variant=variant,
+                                     n_split=n_split, **kw)
+            torch.cuda.synchronize()
+            atol, rtol = TOL[dt]
+            err, ok = within(out, ref, atol, rtol)
+            tag = f"{name}/{str(dt).split('.')[-1]}/{variant}"
+            if n_split:
+                tag += f"/{n_split}"
+            emit(phase="kernel", kernel="flash_attention", case=tag,
+                 variant=variant, n_split=n_split,
+                 shape=[B, Sq, Sk, H, G, D], causal=causal, window=window,
+                 max_abs_err=err, atol=atol, rtol=rtol)
+            check(ok, f"flash_attention disagrees with its plain version: "
+                      f"{tag}")
+            check(bool(torch.isfinite(out).all()), f"non-finite output: "
+                                                   f"{tag}")
+            if name.startswith("masked_rows"):  # qpos < 0: no valid key
+                check(bool((out[:, :10] == 0).all()), f"masked rows not "
+                                                      f"zero: {tag}")
+            if name == "split_all_masked":
+                check(bool((out == 0).all()), f"masked row not zero: {tag}")
+            errs[f"flash_attention:{tag}"] = err
+            del out
+        del q, k, v, ref
     for (name, B, T, H, K, V, use_u, init, logw_const,
          dt) in gla_cases():
         r, k, v, logw, u, s0 = gla_inputs(B, T, H, K, V, use_u, init,
@@ -277,24 +335,31 @@ def phase_wiring():
 
 # ---------------------------------------------------------------- phase 5 --
 def phase_serve():
-    """Each serving run with both launch counts set to 0 just before it and
-    read just after; returns {arch: {kernel: launches}}."""
-    launches = {}
+    """Each serving run with every launch count set to 0 just before it and
+    read just after; returns {arch: {kernel: launches}} and {arch:
+    {flash_attention variant: launches}}."""
+    launches, variants = {}, {}
     for arch, (N, P, GEN) in SERVE.items():
         cfg = get_config(arch)
         attn = cfg.family in ("dense", "hybrid")
         gla = cfg.family in ("ssm", "hybrid")
-        # attention: every layer at prefill and at each of the G-1 decode
-        # steps; GLA scan: every layer at prefill (decode runs gla_step)
+        # attention: every layer at prefill (tc) and at each of the G-1
+        # decode steps (split); GLA scan: every layer at prefill (decode
+        # runs gla_step)
         want = {"flash_attention": cfg.n_layers * GEN if attn else 0,
                 "gla_scan": cfg.n_layers if gla else 0}
+        want_variants = {"simt": 0, "tc": cfg.n_layers if attn else 0,
+                         "split": cfg.n_layers * (GEN - 1) if attn else 0}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         fa.flash_attention.launches = 0
+        for name in fa.flash_attention.launches_by_variant:
+            fa.flash_attention.launches_by_variant[name] = 0
         gs.gla_scan.launches = 0
         res = serve(cfg, N, P, GEN, device=DEV, seed=0)
         got = {"flash_attention": fa.flash_attention.launches,
                "gla_scan": gs.gla_scan.launches}
+        got_variants = dict(fa.flash_attention.launches_by_variant)
         finite = bool(torch.isfinite(res.logits).all())
         tok_ok = bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
         emit(phase="serve", arch=cfg.name, n_layers=cfg.n_layers,
@@ -306,34 +371,75 @@ def phase_serve():
              load_imbalance=res.load_imbalance, prefill_s=res.prefill_s,
              decode_s=res.decode_s, decode_tok_s=res.decode_tok_s,
              launches=got, expected_launches=want,
+             flash_variants=got_variants,
+             expected_flash_variants=want_variants,
              logits_shape=list(res.logits.shape), logits_finite=finite,
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
              tokens_req0=res.tokens[0].tolist())
         check(got == want, f"{arch}: kernel launches {got}, expected {want}")
+        check(got_variants == want_variants,
+              f"{arch}: flash_attention launches by variant {got_variants}, "
+              f"expected {want_variants}")
         check(finite, f"{arch}: non-finite logits on the serving path")
         check(tuple(res.logits.shape) == (N, GEN - 1, cfg.padded_vocab),
               f"{arch}: unexpected logits shape")
         check(tuple(res.tokens.shape) == (N, GEN) and tok_ok,
               f"{arch}: generated tokens out of shape or vocab")
         launches[arch] = got
+        variants[arch] = got_variants
         del res
     torch.cuda.empty_cache()
-    return launches
+    return launches, variants
 
 
 # ---------------------------------------------------------------- phase 6 --
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int):
+    """(ms, host us) per call of ``iters`` eager calls after a warm-up. ms:
+    CUDA events around the calls, the device's time unless the host takes
+    longer to issue a call; host us: the host clock around the same calls,
+    before the wait for the card, the host's cost of issuing one (or the
+    device's time, where the host waits for a full launch queue)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_s = time.perf_counter() - t0
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_s / iters * 1e6
+
+
+def graph_ms(fn, calls: int, replays: int) -> float:
+    """Per call, CUDA events around ``replays`` replays of a CUDA graph of
+    ``calls`` calls: the device time alone, without the host's cost of
+    issuing each call (a decode kernel takes less time than its Python
+    wrapper)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # warm up: build, smem limits, SM count
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def least_ms(nbytes, flops):
@@ -415,21 +521,47 @@ def phase_times():
         kw = dict(causal=True, window=window, qpos=qpos, kpos=kpos)
         sdpa_kw = (dict(is_causal=True) if Sq == Sk and not window
                    else dict(attn_mask=mask))
-        kern_in, plain_in = itertools.cycle(bufs), itertools.cycle(bufs)
+        variant = fa.choose_variant(dt, Sq)
+        cyc = {key: itertools.cycle(bufs) for key in ("", "simt", "plain")}
         lib_in = itertools.cycle(sdpa_bufs)
-        ms = time_ms(lambda: fa.flash_attention(*next(kern_in), **kw), iters)
-        plain_ms = time_ms(
-            lambda: fa.flash_attention_ref(*next(plain_in), **kw),
+        fns = {
+            "": lambda: fa.flash_attention(*next(cyc[""]), **kw),
+            "simt": lambda: fa.flash_attention(*next(cyc["simt"]),
+                                               variant="simt", **kw),
+            "library": lambda: F.scaled_dot_product_attention(
+                *next(lib_in), enable_gqa=True, **sdpa_kw)}
+        calls, replays = 2 * nbuf, max(2, iters // (2 * nbuf))
+        # the chosen kernel, the simt kernel and SDPA in turns, twice: eager
+        # calls (ms, what a caller issuing one call at a time pays: the
+        # yardstick of every PR) and CUDA graphs (device_ms, the card's
+        # time alone)
+        runs = {key: [] for key in ("ms", "host_us", "device_ms")}
+        for _ in range(2):
+            for key in ("ms", "host_us", "device_ms"):
+                runs[key].append({})
+            for fn_name, fn in fns.items():
+                ms, host_us = time_ms(fn, iters)
+                runs["ms"][-1][fn_name] = ms
+                runs["host_us"][-1][fn_name] = host_us
+                runs["device_ms"][-1][fn_name] = graph_ms(fn, calls, replays)
+        times = {}
+        for key, rounds in runs.items():
+            for fn_name in fns:
+                field = "_".join(filter(None, (fn_name, key)))
+                times[field] = min(r[fn_name] for r in rounds)
+                times[field + "_runs"] = [r[fn_name] for r in rounds]
+        plain_ms, _ = time_ms(
+            lambda: fa.flash_attention_ref(*next(cyc["plain"]), **kw),
             max(10, iters // 10))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            *next(lib_in), enable_gqa=True, **sdpa_kw), iters)
         nbytes, flops = flash_work(N, H, G, D, qpos, kpos, True, window, 2)
         b_ms, b_by = least_ms(nbytes, flops)
         per[("flash_attention", name)] = dict(
             shape=[N, Sq, Sk, H, G, D], window=window, dtype="bfloat16",
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-            bound_us=b_ms * 1e3, bound_by=b_by, bytes=nbytes, flops=flops,
-            launches_per_serving_run=n_calls)
+            variant=variant,
+            n_split=(fa.decode_splits(N, G, Sk, n_sm())
+                     if variant == "split" else None),
+            **times, plain_ms=plain_ms, bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by, bytes=nbytes,
+            flops=flops, launches_per_serving_run=n_calls)
         emit(phase="times", kernel="flash_attention", at=name,
              **per[("flash_attention", name)])
         del bufs, sdpa_bufs
@@ -445,8 +577,8 @@ def phase_times():
         bufs = [gla_inputs(N, T, H, K, V, use_u, False, None, dt, gen)[:5]
                 for _ in range(2)]
         kern_in, plain_in = itertools.cycle(bufs), itertools.cycle(bufs)
-        ms = time_ms(lambda: gs.gla_scan(*next(kern_in)), 20)
-        plain_ms = time_ms(lambda: gs.gla_scan_ref(*next(plain_in)), 5)
+        ms, _ = time_ms(lambda: gs.gla_scan(*next(kern_in)), 20)
+        plain_ms, _ = time_ms(lambda: gs.gla_scan_ref(*next(plain_in)), 5)
         nbytes, flops = gla_work(N, T, H, K, V, use_u, 2)
         b_ms, b_by = least_ms(nbytes, flops)
         name = arch.split("-")[0] + "_prefill"
@@ -465,7 +597,9 @@ def phase_times():
 
 def kernel_entry(kernel, source, replaces, launches, max_abs_err, per):
     """One kernel of the kernels line: times are totals over the serving
-    runs' calls (each shape's per-call time x its calls in a run)."""
+    runs' calls (each shape's per-call time x its calls in a run). ms,
+    plain_ms and library_ms are eager calls timed by CUDA events, as in
+    every PR; device_ms (flash) is the kernel's time in CUDA graphs."""
     rows = {name: row for (k, name), row in per.items() if k == kernel}
 
     def total(key):
@@ -485,11 +619,18 @@ def kernel_entry(kernel, source, replaces, launches, max_abs_err, per):
         "library_ms": total("library_ms"),
         "launches_by_run": launches,
         "per_call": {name: {k: row[k] for k in
-                            ("shape", "ms", "plain_ms", "library_ms",
+                            ("shape", "variant", "n_split", "ms", "host_us",
+                             "device_ms", "simt_ms", "simt_host_us",
+                             "simt_device_ms", "plain_ms", "library_ms",
+                             "library_host_us", "library_device_ms",
                              "bound_ms", "bound_by",
-                             "launches_per_serving_run")}
+                             "launches_per_serving_run") if k in row}
                      for name, row in rows.items()},
     }
+    if kernel == "flash_attention":
+        for key in ("device_ms", "simt_ms", "simt_device_ms",
+                    "library_device_ms"):
+            entry[key] = total(key)
     if kernel == "gla_scan":
         entry["library"] = "none: no single PyTorch call computes a GLA scan"
     return entry
@@ -512,33 +653,40 @@ def main() -> None:
 
     t0 = time.perf_counter()
     libs = build.build_all()
-    ptxas = [ln.strip() for p in libs
+    ptxas = [ln.strip().replace("ptxas info    : ", "") for p in libs
              for ln in p.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in libs], ptxas=ptxas)
 
     errs = phase_kernel()
     phase_wiring()
-    launches = phase_serve()
+    launches, variants = phase_serve()
     per = phase_times()
 
     def by_kernel(kernel):
         return {arch: n[kernel] for arch, n in launches.items() if n[kernel]}
 
     print(smi, flush=True)
+    def serving_err(tag):  # bf16 serving shapes, the variant chosen there
+        name, dtype, variant = tag.split("/")[:3]
+        return (name in ("prefill", "decode", "hymba_prefill",
+                         "hymba_decode")
+                and dtype == "bfloat16" and variant != "simt")
+
+    flash = kernel_entry(
+        "flash_attention",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:27",
+        by_kernel("flash_attention"),
+        max(v for k, v in errs.items()
+            if k.startswith("flash_attention:")
+            and serving_err(k.split(":")[1])),
+        per)
+    flash["launches_by_variant"] = {arch: n for arch, n in variants.items()
+                                    if any(n.values())}
     emit(kernels=[
-        kernel_entry(
-            "flash_attention",
-            "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "src/repro/kernels/flash_attention.py:27",
-            by_kernel("flash_attention"),
-            max(v for k, v in errs.items()
-                if k.startswith("flash_attention:")
-                and k.endswith("bfloat16")
-                and k.split(":")[1].split("/")[0] in
-                ("prefill", "decode", "hymba_prefill", "hymba_decode")),
-            per),
+        flash,
         kernel_entry(
             "gla_scan", "src/repro_torch/kernels/csrc/gla_scan.cu",
             "src/repro/kernels/gla_scan.py:30", by_kernel("gla_scan"),

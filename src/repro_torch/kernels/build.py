@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -89,14 +89,27 @@ def build_all() -> List[Path]:
     return [library_path(n) for n in sources()]
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The built library for ``csrc/<name>.cu``, building it if stale."""
+def load(name: str,
+         signatures: Optional[Dict[str, Tuple[object, Sequence]]] = None
+         ) -> ctypes.CDLL:
+    """The built library for ``csrc/<name>.cu``, building it if stale.
+
+    The C signatures are set once, when the library is first loaded:
+    ``signatures`` maps a function's name to (restype, argtypes), and every
+    library's ``repro_cuda_error_string`` is set here too."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             _finish(name, *_start(name))
-        lib = _loaded[name] = ctypes.CDLL(str(path))
+        lib = ctypes.CDLL(str(path))
+        sigs = {"repro_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+                **(signatures or {})}
+        for fn_name, (restype, argtypes) in sigs.items():
+            fn = getattr(lib, fn_name)
+            fn.restype = restype
+            fn.argtypes = list(argtypes)
+        _loaded[name] = lib
     return lib
 
 
@@ -104,8 +117,5 @@ def raise_on_error(lib: ctypes.CDLL, err: int, kernel: str) -> None:
     """Raise if a launch function returned a non-zero ``cudaError_t``; each
     library exports ``repro_cuda_error_string`` for the message."""
     if err:
-        fn = lib.repro_cuda_error_string
-        fn.restype = ctypes.c_char_p
-        fn.argtypes = [ctypes.c_int]
         raise RuntimeError(f"{kernel} kernel launch failed: "
-                           f"{fn(err).decode()}")
+                           f"{lib.repro_cuda_error_string(err).decode()}")

@@ -26,6 +26,11 @@ from repro_torch.models.recurrence import gla_chunked
 CHUNK = 32                      # the kernel's chunk length
 DIMS = (8, 16, 32, 64)          # key and value widths the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# repro_gla_scan_fwd(r, k, v, logw, u, s0, y, state, B, T, H, K, V, dtype,
+#                    device, stream)
+_SIGNATURES = {"repro_gla_scan_fwd": (
+    ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p])}
 
 
 def gla_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,21 +100,18 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type != "cuda":
         raise ValueError(f"no gla_scan for device {r.device}")
     _check(r, k, v, logw, u, initial_state)
-    lib = build.load("gla_scan")
-    fn = lib.repro_gla_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    lib = build.load("gla_scan", _SIGNATURES)
     B, T, H, K = r.shape
     V = v.shape[-1]
     y = torch.empty_like(v)
     state = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
-    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
-             None if u is None else u.data_ptr(),
-             None if initial_state is None else initial_state.data_ptr(),
-             y.data_ptr(), state.data_ptr(), B, T, H, K, V,
-             _DTYPE_CODE[r.dtype], r.device.index or 0, stream)
+    err = lib.repro_gla_scan_fwd(
+        r.data_ptr(), k.data_ptr(), v.data_ptr(), logw.data_ptr(),
+        None if u is None else u.data_ptr(),
+        None if initial_state is None else initial_state.data_ptr(),
+        y.data_ptr(), state.data_ptr(), B, T, H, K, V,
+        _DTYPE_CODE[r.dtype], r.device.index or 0, stream)
     build.raise_on_error(lib, err, "gla_scan")
     gla_scan.launches += 1
     return y, state

@@ -10,7 +10,8 @@ The configuration is one of chip_smoke.py's serving runs: 8 requests of
 profiled decode steps.
 
 Prints one JSON line: host-clock prefill seconds and decode ms per step
-(without the profiler, after a warm-up), then, under the profiler, the
+(without the profiler, after a warm-up; the median of 11 runs of each, and
+the runs), then, under the profiler, the
 device's busy share of each window (kernel time over the window's wall
 time, which the profiler lengthens) and the kernels that take the most
 device time.
@@ -32,7 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.train import make_prefill_step, make_serve_step
 
-REQUESTS, STEPS, TOP = 8, 4, 12
+REQUESTS, STEPS, TOP, REPEATS = 8, 4, 12, 11
 
 
 def _window(fn):
@@ -95,13 +96,19 @@ def main(argv: Optional[List[str]] = None) -> None:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    pf_s, dec_s = host_clock(run_prefill), host_clock(run_decode)
+    # in turns, as the host's clock varies from one moment to the next
+    runs = [(host_clock(run_prefill), host_clock(run_decode))
+            for _ in range(REPEATS)]
+    pf_runs = [pf for pf, _ in runs]
+    dec_runs = [dec / STEPS * 1e3 for _, dec in runs]
     pf_prof_s, pf_busy, pf_top = _window(run_prefill)
     dec_prof_s, dec_busy, dec_top = _window(run_decode)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "arch": cfg.name,
         "requests": B, "prompt_len": P, "decode_steps": STEPS,
-        "prefill_s": pf_s, "decode_ms_per_step": dec_s / STEPS * 1e3,
+        "prefill_s": float(np.median(pf_runs)), "prefill_s_runs": pf_runs,
+        "decode_ms_per_step": float(np.median(dec_runs)),
+        "decode_ms_per_step_runs": dec_runs,
         "profiled_prefill_s": pf_prof_s, "prefill_device_busy": pf_busy,
         "profiled_decode_ms_per_step": dec_prof_s / STEPS * 1e3,
         "decode_device_busy": dec_busy,

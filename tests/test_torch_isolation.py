@@ -50,3 +50,13 @@ def test_sources_name_no_jax_and_no_repro_import():
     assert FORBIDDEN.search("from repro.models import x")
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert not FORBIDDEN.search("from repro_torch.models import x")
+
+
+def test_port_calls_no_library_attention():
+    """Attention on the port's path is its own kernel: no file of the
+    package calls SDPA (chip_smoke.py times it only as a yardstick)."""
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+        (ROOT / "src" / "repro_torch").rglob("*.cu"))
+    assert len(files) >= 15
+    for f in files:
+        assert "scaled_dot_product_attention" not in f.read_text(), f
