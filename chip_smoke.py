@@ -8,21 +8,27 @@ Phases, each failing the run with a non-zero exit:
   2. build   - compile every CUDA source of the port with nvcc, in parallel
   3. kernel  - flash_attention (each case on the kernel the wrapper
                chooses, tc / split / simt; split at several n_split; the
-               simt kernel also at the bf16 serving shapes) and
-               gla_scan against their plain versions on the card, at the
-               serving shapes and at edge cases
+               simt kernel also at the bf16 serving shapes) and gla_scan
+               (bf16 cases on tc and on simt, f32 cases on simt) against
+               their plain versions on
+               the card, at the serving shapes and at edge cases
   4. wiring  - qwen3-4b, rwkv6-7b and hymba-1.5b at full width, 2 layers,
                f32: prefill + one decode step with the kernels vs with the
-               plain versions (attn_impl="ref", gla_impl="chunked")
+               plain versions (attn_impl="ref", gla_impl="chunked"); and
+               rwkv6-7b and hymba-1.5b in bf16, gla_impl="kernel" (the tc
+               kernel) vs "chunked", beside two control readings: the
+               plain model with a GLA scan broken on purpose
   5. serve   - the main paths: JoSS routing -> prefill -> greedy decode of
                qwen3-4b, rwkv6-7b and hymba-1.5b at full width and depth in
                bf16; counts each kernel's launches in each run, and the
-               flash launches by variant (prefill tc, decode split)
+               launches by variant (flash: prefill tc, decode split; GLA:
+               tc)
   6. times   - each kernel, its plain version and (for attention) SDPA as
                a yardstick, at the serving shapes, beside the least time
                the card could take: eager calls timed by CUDA events (ms)
-               and the host's cost a call; flash also with the simt kernel
-               and in CUDA graphs (device_ms), in turns in the same run
+               and the host's cost a call, and in CUDA graphs (device_ms);
+               the chosen kernel and the simt kernel (the first design) in
+               turns in the same run
 Each phase prints JSON lines; the run ends with the nvidia-smi line, the
 kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
@@ -44,6 +50,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gla_scan as gs  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.recurrence import gla_chunked  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
 
 DEV = "cuda"  # the phases run on the card
@@ -62,6 +69,13 @@ SERVE = {"qwen3-4b": (8, 512, 32), "rwkv6-7b": (8, 512, 32),
 # differ only by f32 summation order (TF32 off), so 1e-3 on O(1) logits is
 # ample
 WIRING_ATOL = 1e-3
+# logits of the bf16 GLA wiring checks, as ||kernel - plain|| / ||plain||
+# over all logits: the tc kernel's y is a few bf16 ulps from the plain
+# version's, which moved two layers' logits by 1.0-1.6% on an H100
+# (PERF.md); 5e-2 leaves three times that. Each bf16 line also reads two
+# wrong GLA scans in the plain model (CONTROLS), the first of which must
+# land above the limit, or the line could not fail
+WIRING_BF16_RTOL = 5e-2
 
 
 def n_sm() -> int:
@@ -189,8 +203,12 @@ def split_counts(B, G, Sk):
 def gla_cases():
     """(name, B, T, H, K, V, u, initial state, logw, dtype). logw None is
     test_kernels.py's draw -exp(clip(randn, -3, 1)); a number is a constant
-    log decay (-60, and -exp(6), RWKV6's strongest)."""
+    log decay (-60, and -exp(6), RWKV6's strongest); "wide" is
+    -exp(clip(2 randn, -3, 3)), whose sub-chunks of 16 steps decay by more
+    than 2^64 in some places and not in others (the tc kernel's two ways to
+    the pairs of a sub-chunk)."""
     f32, bf16 = torch.float32, torch.bfloat16
+    exp6 = -403.4287934927351
     return [
         # the serving shapes: rwkv6 (u-bonus) and hymba's SSM heads (no u)
         ("rwkv6_prefill", 8, 512, 64, 64, 64, True, False, None, bf16),
@@ -206,6 +224,16 @@ def gla_cases():
          f32),
         ("kv_8", 2, 64, 3, 8, 8, False, False, None, f32),
         ("k32_v8_bf16", 2, 100, 2, 32, 8, False, True, None, bf16),
+        # the tc kernel at the extreme decays, ragged T, initial state
+        ("decay_60_bf16", 2, 77, 4, 64, 64, True, True, -60.0, bf16),
+        ("decay_exp6_bf16", 2, 77, 4, 64, 64, True, True, exp6, bf16),
+        ("decay_exp6_k16_bf16", 2, 77, 5, 16, 64, False, True, exp6, bf16),
+        ("wide_decay_bf16", 2, 200, 4, 64, 64, True, True, "wide", bf16),
+        ("wide_decay_k16_bf16", 2, 200, 5, 16, 64, False, False, "wide",
+         bf16),
+        # K = 8 and a single short chunk (the tc kernel pads K to 16)
+        ("k8_v16_bf16", 2, 50, 3, 8, 16, True, True, None, bf16),
+        ("one_chunk_bf16", 3, 20, 2, 16, 32, True, True, None, bf16),
     ]
 
 
@@ -216,6 +244,9 @@ def gla_inputs(B, T, H, K, V, use_u, init, logw_const, dt, gen):
     if logw_const is None:
         logw = -torch.exp(torch.randn((B, T, H, K), generator=gen,
                                       device=DEV).clamp(-3, 1))
+    elif logw_const == "wide":
+        logw = -torch.exp((2 * torch.randn((B, T, H, K), generator=gen,
+                                           device=DEV)).clamp(-3, 3))
     else:
         logw = torch.full((B, T, H, K), logw_const, device=DEV)
     u = (0.1 * torch.randn((H, K), generator=gen, device=DEV)
@@ -266,45 +297,105 @@ def phase_kernel():
          dt) in gla_cases():
         r, k, v, logw, u, s0 = gla_inputs(B, T, H, K, V, use_u, init,
                                           logw_const, dt, gen)
-        y, s = gs.gla_scan(r, k, v, logw, u, initial_state=s0)
-        torch.cuda.synchronize()
         y_ref, s_ref = gs.gla_scan_ref(r, k, v, logw, u, initial_state=s0)
         torch.cuda.synchronize()
-        atol, rtol = GLA_TOL[dt]
-        err_y, ok_y = within(y, y_ref, atol, rtol)
-        err_s, ok_s = within(s, s_ref, atol, rtol)
-        tag = f"{name}/{str(dt).split('.')[-1]}"
-        emit(phase="kernel", kernel="gla_scan", case=tag,
-             shape=[B, T, H, K, V], u=use_u, initial_state=init,
-             logw=logw_const, y_max_abs_err=err_y,
-             state_max_abs_err=err_s, atol=atol, rtol=rtol)
-        check(ok_y and ok_s, f"gla_scan disagrees with its plain version: "
-                             f"{tag}")
-        check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
-              f"non-finite gla_scan output: {tag}")
-        check(y.dtype == v.dtype and s.dtype == torch.float32,
-              f"gla_scan output dtypes: {tag}")
-        errs[f"gla_scan:{tag}"] = max(err_y, err_s)
-        del r, k, v, logw, y, s, y_ref, s_ref
+        runs = ("tc", "simt") if dt == torch.bfloat16 else ("simt",)
+        for variant in runs:
+            y, s = gs.gla_scan(r, k, v, logw, u, initial_state=s0,
+                               variant=variant)
+            torch.cuda.synchronize()
+            atol, rtol = GLA_TOL[dt]
+            err_y, ok_y = within(y, y_ref, atol, rtol)
+            err_s, ok_s = within(s, s_ref, atol, rtol)
+            tag = f"{name}/{str(dt).split('.')[-1]}/{variant}"
+            emit(phase="kernel", kernel="gla_scan", case=tag,
+                 variant=variant, shape=[B, T, H, K, V],
+                 u=use_u, initial_state=init, logw=logw_const,
+                 y_max_abs_err=err_y, state_max_abs_err=err_s, atol=atol,
+                 rtol=rtol)
+            check(ok_y and ok_s, f"gla_scan disagrees with its plain "
+                                 f"version: {tag}")
+            check(bool(torch.isfinite(y).all() and torch.isfinite(s).all()),
+                  f"non-finite gla_scan output: {tag}")
+            check(y.dtype == v.dtype and s.dtype == torch.float32,
+                  f"gla_scan output dtypes: {tag}")
+            errs[f"gla_scan:{tag}"] = max(err_y, err_s)
+            del y, s
+        del r, k, v, logw, y_ref, s_ref
     torch.cuda.empty_cache()
     return errs
 
 
 # ---------------------------------------------------------------- phase 4 --
-WIRING = {
-    # arch -> (B, S, kernel build kwargs, plain build kwargs)
-    "qwen3-4b": (2, 128, dict(attn_impl="flash"), dict(attn_impl="ref")),
-    "rwkv6-7b": (2, 128, dict(gla_impl="kernel"), dict(gla_impl="chunked")),
+WIRING = [
+    # (arch, dtype, B, S, kernel build kwargs, plain build kwargs)
+    ("qwen3-4b", "float32", 2, 128, dict(attn_impl="flash"),
+     dict(attn_impl="ref")),
+    ("rwkv6-7b", "float32", 2, 128, dict(gla_impl="kernel"),
+     dict(gla_impl="chunked")),
     # S = 2 x window: the plain side takes the banded path, the decode
     # step sees the wrapped 1024-slot ring
-    "hymba-1.5b": (2, 2048, dict(attn_impl="flash", gla_impl="kernel"),
-                   dict(attn_impl="ref", gla_impl="chunked")),
-}
+    ("hymba-1.5b", "float32", 2, 2048,
+     dict(attn_impl="flash", gla_impl="kernel"),
+     dict(attn_impl="ref", gla_impl="chunked")),
+    # bf16: the GLA scan on the tc kernel against gla_chunked, attention
+    # the same on both sides
+    ("rwkv6-7b", "bfloat16", 2, 128, dict(gla_impl="kernel"),
+     dict(gla_impl="chunked")),
+    ("hymba-1.5b", "bfloat16", 2, 2048,
+     dict(attn_impl="flash", gla_impl="kernel"),
+     dict(attn_impl="flash", gla_impl="chunked")),
+]
+
+
+def gla_state_dropped(r, k, v, logw, u=None, *, initial_state=None):
+    """A wrong GLA scan: each chunk of 32 starts from a zero state, as a
+    kernel that forgets to carry S would (the final state is right, so the
+    decode step starts from the true cache). T must be a multiple of 32."""
+    B, T, H, _ = r.shape
+    n = T // gs.CHUNK
+    y, _ = gla_chunked(*(x.reshape(B * n, gs.CHUNK, H, x.shape[-1])
+                         for x in (r, k, v, logw)), u, chunk=gs.CHUNK)
+    _, state = gla_chunked(r, k, v, logw, u, chunk=gs.CHUNK,
+                           initial_state=initial_state)
+    return y.reshape(v.shape), state
+
+
+def gla_state_bf16(r, k, v, logw, u=None, *, initial_state=None):
+    """A GLA scan in a lower precision: the state carried from chunk to
+    chunk is rounded to bf16 each time, as a kernel that keeps S in bf16
+    would (subtler than dropping it)."""
+    ys, state = [], initial_state
+    for t0 in range(0, r.shape[1], gs.CHUNK):
+        y, state = gla_chunked(
+            *(x[:, t0:t0 + gs.CHUNK] for x in (r, k, v, logw)), u,
+            chunk=gs.CHUNK, initial_state=None if state is None
+            else state.bfloat16().float())
+        ys.append(y)
+    return torch.cat(ys, dim=1), state
+
+
+# the wrong scans of the bf16 wiring lines, read in the plain model; the
+# first must move the logits past WIRING_BF16_RTOL
+CONTROLS = {"state_dropped": gla_state_dropped,
+            "state_bf16": gla_state_bf16}
+
+
+def run_model(model, toks, S, vocab):
+    """(prefill logits, decode-step logits) as f32, vocab columns only."""
+    lg, cache = model.prefill({"tokens": toks[:, :S]}, cache_len=S + 4)
+    ld, _ = model.decode_step(cache, toks[:, S:S + 1], S)
+    return lg[..., :vocab].float(), ld[..., :vocab].float()
+
+
+def rel_err(out, ref):
+    """max over prefill and decode of ||out - ref|| / ||ref||."""
+    return max(((o - r).norm() / r.norm()).item() for o, r in zip(out, ref))
 
 
 def phase_wiring():
-    for arch, (B, S, kern_kw, plain_kw) in WIRING.items():
-        cfg = get_config(arch).scaled(n_layers=2, dtype="float32")
+    for arch, dtype, B, S, kern_kw, plain_kw in WIRING:
+        cfg = get_config(arch).scaled(n_layers=2, dtype=dtype)
         kern = build_model(cfg, device=DEV, **kern_kw)
         kern.init_params(torch.Generator(device=DEV).manual_seed(2))
         plain = build_model(cfg, device=DEV, **plain_kw)
@@ -312,24 +403,37 @@ def phase_wiring():
         toks = torch.randint(0, cfg.vocab, (B, S + 1), device=DEV,
                              generator=torch.Generator(device=DEV)
                              .manual_seed(3))
-        out = {}
-        for name, model in (("kernel", kern), ("plain", plain)):
-            lg, cache = model.prefill({"tokens": toks[:, :S]},
-                                      cache_len=S + 4)
-            ld, _ = model.decode_step(cache, toks[:, S:S + 1], S)
-            out[name] = (lg[..., :cfg.vocab], ld[..., :cfg.vocab])
-            del cache
+        (kp, kd), (pp, pd) = (run_model(m, toks, S, cfg.vocab)
+                              for m in (kern, plain))
+        controls = {}
+        if dtype == "bfloat16":
+            for name, fn in CONTROLS.items():
+                plain.gla = fn
+                controls[name] = rel_err(run_model(plain, toks, S,
+                                                   cfg.vocab), (pp, pd))
         torch.cuda.synchronize()
-        err_pf = (out["kernel"][0] - out["plain"][0]).abs().max().item()
-        err_dec = (out["kernel"][1] - out["plain"][1]).abs().max().item()
+        err_pf = (kp - pp).abs().max().item()
+        err_dec = (kd - pd).abs().max().item()
+        rel_pf = ((kp - pp).norm() / pp.norm()).item()
+        rel_dec = ((kd - pd).norm() / pd.norm()).item()
+        limit = (dict(atol=WIRING_ATOL) if dtype == "float32"
+                 else dict(rtol=WIRING_BF16_RTOL))
         emit(phase="wiring", arch=cfg.name, n_layers=cfg.n_layers,
              d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
              kernel=kern_kw, plain=plain_kw, prefill_max_abs_err=err_pf,
-             decode_max_abs_err=err_dec, atol=WIRING_ATOL)
-        check(err_pf <= WIRING_ATOL and err_dec <= WIRING_ATOL,
-              f"{arch}: the kernels and the plain versions disagree inside "
-              f"the model")
-        del kern, plain, out
+             decode_max_abs_err=err_dec, prefill_rel_err=rel_pf,
+             decode_rel_err=rel_dec, control_rel_err=controls, **limit)
+        ok = (max(err_pf, err_dec) <= WIRING_ATOL if dtype == "float32"
+              else max(rel_pf, rel_dec) <= WIRING_BF16_RTOL)
+        finite = bool(torch.isfinite(kp).all() and torch.isfinite(kd).all())
+        check(ok and finite, f"{arch} ({dtype}): the kernels and the plain "
+                             f"versions disagree inside the model")
+        check(not controls
+              or controls["state_dropped"] > WIRING_BF16_RTOL,
+              f"{arch} ({dtype}): a GLA scan that drops the state moves "
+              f"the logits by {controls.get('state_dropped')}, inside "
+              f"{WIRING_BF16_RTOL}: the wiring line cannot fail")
+        del kern, plain
         torch.cuda.empty_cache()
 
 
@@ -337,7 +441,7 @@ def phase_wiring():
 def phase_serve():
     """Each serving run with every launch count set to 0 just before it and
     read just after; returns {arch: {kernel: launches}} and {arch:
-    {flash_attention variant: launches}}."""
+    {kernel: {variant: launches}}}."""
     launches, variants = {}, {}
     for arch, (N, P, GEN) in SERVE.items():
         cfg = get_config(arch)
@@ -350,16 +454,18 @@ def phase_serve():
                 "gla_scan": cfg.n_layers if gla else 0}
         want_variants = {"simt": 0, "tc": cfg.n_layers if attn else 0,
                          "split": cfg.n_layers * (GEN - 1) if attn else 0}
+        want_gla = {"tc": cfg.n_layers if gla else 0, "simt": 0}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        fa.flash_attention.launches = 0
-        for name in fa.flash_attention.launches_by_variant:
-            fa.flash_attention.launches_by_variant[name] = 0
-        gs.gla_scan.launches = 0
+        for fn in (fa.flash_attention, gs.gla_scan):
+            fn.launches = 0
+            for name in fn.launches_by_variant:
+                fn.launches_by_variant[name] = 0
         res = serve(cfg, N, P, GEN, device=DEV, seed=0)
         got = {"flash_attention": fa.flash_attention.launches,
                "gla_scan": gs.gla_scan.launches}
         got_variants = dict(fa.flash_attention.launches_by_variant)
+        got_gla = dict(gs.gla_scan.launches_by_variant)
         finite = bool(torch.isfinite(res.logits).all())
         tok_ok = bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
         emit(phase="serve", arch=cfg.name, n_layers=cfg.n_layers,
@@ -372,7 +478,8 @@ def phase_serve():
              decode_s=res.decode_s, decode_tok_s=res.decode_tok_s,
              launches=got, expected_launches=want,
              flash_variants=got_variants,
-             expected_flash_variants=want_variants,
+             expected_flash_variants=want_variants, gla_variants=got_gla,
+             expected_gla_variants=want_gla,
              logits_shape=list(res.logits.shape), logits_finite=finite,
              peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
              tokens_req0=res.tokens[0].tolist())
@@ -380,13 +487,16 @@ def phase_serve():
         check(got_variants == want_variants,
               f"{arch}: flash_attention launches by variant {got_variants}, "
               f"expected {want_variants}")
+        check(got_gla == want_gla, f"{arch}: gla_scan launches by variant "
+                                   f"{got_gla}, expected {want_gla}")
         check(finite, f"{arch}: non-finite logits on the serving path")
         check(tuple(res.logits.shape) == (N, GEN - 1, cfg.padded_vocab),
               f"{arch}: unexpected logits shape")
         check(tuple(res.tokens.shape) == (N, GEN) and tok_ok,
               f"{arch}: generated tokens out of shape or vocab")
         launches[arch] = got
-        variants[arch] = got_variants
+        variants[arch] = {"flash_attention": got_variants,
+                          "gla_scan": got_gla}
         del res
     torch.cuda.empty_cache()
     return launches, variants
@@ -567,7 +677,9 @@ def phase_times():
         del bufs, sdpa_bufs
         torch.cuda.empty_cache()
     # gla_scan at the two prefill shapes; one set of inputs is ~160-210 MB,
-    # so two in turn keep every launch out of the 50 MB L2
+    # so two in turn keep every launch out of the 50 MB L2. The chosen
+    # kernel (tc) and the simt kernel in turns, twice, eager and in CUDA
+    # graphs
     for arch, use_u in (("rwkv6-7b", True), ("hymba-1.5b", False)):
         cfg = get_config(arch)
         N, T, _ = SERVE[arch]
@@ -576,18 +688,39 @@ def phase_times():
         V = cfg.hdim
         bufs = [gla_inputs(N, T, H, K, V, use_u, False, None, dt, gen)[:5]
                 for _ in range(2)]
-        kern_in, plain_in = itertools.cycle(bufs), itertools.cycle(bufs)
-        ms, _ = time_ms(lambda: gs.gla_scan(*next(kern_in)), 20)
-        plain_ms, _ = time_ms(lambda: gs.gla_scan_ref(*next(plain_in)), 5)
+        kws = {"": dict(), "simt": dict(variant="simt")}
+        cyc = {key: itertools.cycle(bufs) for key in (*kws, "plain")}
+        fns = {key: (lambda key=key: gs.gla_scan(*next(cyc[key]),
+                                                 **kws[key]))
+               for key in kws}
+        runs = {key: [] for key in ("ms", "host_us", "device_ms")}
+        for _ in range(2):
+            for key in runs:
+                runs[key].append({})
+            for fn_name, fn in fns.items():
+                ms, host_us = time_ms(fn, 20)
+                runs["ms"][-1][fn_name] = ms
+                runs["host_us"][-1][fn_name] = host_us
+                runs["device_ms"][-1][fn_name] = graph_ms(fn, 4, 5)
+        times = {}
+        for key, rounds in runs.items():
+            for fn_name in fns:
+                field = "_".join(filter(None, (fn_name, key)))
+                times[field] = min(r[fn_name] for r in rounds)
+                times[field + "_runs"] = [r[fn_name] for r in rounds]
+        plain_ms, _ = time_ms(lambda: gs.gla_scan_ref(*next(cyc["plain"])),
+                              5)
         nbytes, flops = gla_work(N, T, H, K, V, use_u, 2)
         b_ms, b_by = least_ms(nbytes, flops)
         name = arch.split("-")[0] + "_prefill"
         per[("gla_scan", name)] = dict(
-            shape=[N, T, H, K, V], u=use_u, dtype="bfloat16", ms=ms,
+            shape=[N, T, H, K, V], u=use_u, dtype="bfloat16",
+            variant=gs.choose_variant(dt), **times,
             plain_ms=plain_ms, library_ms=None,
             library="none: no single PyTorch call computes a GLA scan",
             bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by, bytes=nbytes,
-            flops=flops, launches_per_serving_run=cfg.n_layers)
+            flops=flops,
+            launches_per_serving_run=cfg.n_layers)
         emit(phase="times", kernel="gla_scan", at=name,
              **per[("gla_scan", name)])
         del bufs
@@ -595,11 +728,19 @@ def phase_times():
     return per
 
 
+PER_CALL_KEYS = ("shape", "variant", "n_split", "ms", "host_us",
+                 "device_ms", "simt_ms", "simt_host_us", "simt_device_ms",
+                 "plain_ms", "library_ms", "library_host_us",
+                 "library_device_ms", "bound_ms", "bound_by",
+                 "launches_per_serving_run")
+
+
 def kernel_entry(kernel, source, replaces, launches, max_abs_err, per):
     """One kernel of the kernels line: times are totals over the serving
     runs' calls (each shape's per-call time x its calls in a run). ms,
     plain_ms and library_ms are eager calls timed by CUDA events, as in
-    every PR; device_ms (flash) is the kernel's time in CUDA graphs."""
+    every PR; device_ms is the kernel's time in CUDA graphs; simt_* are
+    the first design's."""
     rows = {name: row for (k, name), row in per.items() if k == kernel}
 
     def total(key):
@@ -618,19 +759,14 @@ def kernel_entry(kernel, source, replaces, launches, max_abs_err, per):
         "plain_ms": total("plain_ms"), "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": total("library_ms"),
         "launches_by_run": launches,
-        "per_call": {name: {k: row[k] for k in
-                            ("shape", "variant", "n_split", "ms", "host_us",
-                             "device_ms", "simt_ms", "simt_host_us",
-                             "simt_device_ms", "plain_ms", "library_ms",
-                             "library_host_us", "library_device_ms",
-                             "bound_ms", "bound_by",
-                             "launches_per_serving_run") if k in row}
+        "per_call": {name: {k: v for k, v in row.items()
+                            if k in PER_CALL_KEYS}
                      for name, row in rows.items()},
     }
+    for key in ("device_ms", "simt_ms", "simt_device_ms"):
+        entry[key] = total(key)
     if kernel == "flash_attention":
-        for key in ("device_ms", "simt_ms", "simt_device_ms",
-                    "library_device_ms"):
-            entry[key] = total(key)
+        entry["library_device_ms"] = total("library_device_ms")
     if kernel == "gla_scan":
         entry["library"] = "none: no single PyTorch call computes a GLA scan"
     return entry
@@ -683,17 +819,17 @@ def main() -> None:
             if k.startswith("flash_attention:")
             and serving_err(k.split(":")[1])),
         per)
-    flash["launches_by_variant"] = {arch: n for arch, n in variants.items()
-                                    if any(n.values())}
-    emit(kernels=[
-        flash,
-        kernel_entry(
-            "gla_scan", "src/repro_torch/kernels/csrc/gla_scan.cu",
-            "src/repro/kernels/gla_scan.py:30", by_kernel("gla_scan"),
-            max(errs["gla_scan:rwkv6_prefill/bfloat16"],
-                errs["gla_scan:hymba_prefill/bfloat16"]),
-            per),
-    ])
+    gla = kernel_entry(
+        "gla_scan", "src/repro_torch/kernels/csrc/gla_scan.cu",
+        "src/repro/kernels/gla_scan.py:30", by_kernel("gla_scan"),
+        max(errs[f"gla_scan:{name}_prefill/bfloat16/tc"]
+            for name in ("rwkv6", "hymba")),
+        per)
+    for entry in (flash, gla):
+        entry["launches_by_variant"] = {
+            arch: n[entry["name"]] for arch, n in variants.items()
+            if any(n[entry["name"]].values())}
+    emit(kernels=[flash, gla])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

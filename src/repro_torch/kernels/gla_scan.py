@@ -9,8 +9,22 @@ V), which the Pallas kernel lacks and ``gla_chunked`` has. Returns y (B, T,
 H, V) in v's dtype and the final f32 state (B, H, K, V). Any T >= 1: the
 kernel masks a ragged last chunk itself.
 
-On a CPU tensor the wrapper runs ``gla_scan_ref``. On a CUDA tensor it
-launches the kernel (``csrc/gla_scan.cu``) or raises.
+Two kernels (``csrc/gla_scan.cu``) compute the same function; the wrapper
+picks one by dtype (``choose_variant``):
+
+- ``"tc"``: bf16, the pairs and the three products on the tensor cores, a
+  block per (b, h);
+- ``"simt"``: f32 (and bf16 on request), f32 on CUDA cores (tensor cores
+  would run f32 as TF32).
+
+``gla_scan_ref`` is the plain version of both. On a CPU tensor the wrapper
+runs it. On a CUDA tensor it launches the chosen kernel or raises.
+
+Precondition of both kernels: logw <= 0 (a decay, as both models make it:
+RWKV6's -exp(.), hymba's dt * -exp(a_log)). Every exponent they take is
+then <= 0, or bounded inside a tc sub-chunk. A positive logw breaks that:
+the two kernels clamp differently, so they need not agree with each other
+or with the plain version there.
 """
 from __future__ import annotations
 
@@ -25,11 +39,13 @@ from repro_torch.models.recurrence import gla_chunked
 
 CHUNK = 32                      # the kernel's chunk length
 DIMS = (8, 16, 32, 64)          # key and value widths the kernel takes
+VARIANTS = ("tc", "simt")
+_VARIANT_CODE = {"simt": 0, "tc": 1}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # repro_gla_scan_fwd(r, k, v, logw, u, s0, y, state, B, T, H, K, V, dtype,
-#                    device, stream)
+#                    variant, device, stream)
 _SIGNATURES = {"repro_gla_scan_fwd": (
-    ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    ctypes.c_int, [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
     + [ctypes.c_void_p])}
 
 
@@ -49,6 +65,20 @@ def gla_scan_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     y, state = gla_chunked(r, k, v, logw, u, chunk=CHUNK,
                            initial_state=initial_state, shifted_prev=True)
     return y[:, :T], state
+
+
+def choose_variant(dtype: torch.dtype) -> str:
+    """The kernel a call goes to: ``"tc"`` for bf16, ``"simt"`` for f32 (f32
+    on the tensor cores would be TF32, outside the f32 tolerance). Either
+    takes logw <= 0 (the module's precondition)."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
+
+
+def _check_variant(variant: str, dtype: torch.dtype) -> None:
+    if variant not in _VARIANT_CODE:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    if variant == "tc" and dtype != torch.bfloat16:
+        raise TypeError(f"the tc kernel takes bfloat16, got {dtype}")
 
 
 def _check(r, k, v, logw, u, s0) -> None:
@@ -92,9 +122,17 @@ def _check(r, k, v, logw, u, s0) -> None:
 
 def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              logw: torch.Tensor, u: Optional[torch.Tensor] = None, *,
-             initial_state: Optional[torch.Tensor] = None
+             initial_state: Optional[torch.Tensor] = None,
+             variant: Optional[str] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r/k/logw (B,T,H,K), v (B,T,H,V) -> (y (B,T,H,V), state (B,H,K,V))."""
+    """r/k/logw (B,T,H,K), v (B,T,H,V) -> (y (B,T,H,V), state (B,H,K,V)),
+    for logw <= 0.
+
+    ``variant`` (default ``choose_variant``) pins the kernel, for
+    measurements and checks; the model path does not pass it."""
+    if variant is not None:
+        _check_variant(variant, r.dtype)
+    variant = variant or choose_variant(r.dtype)
     if r.device.type == "cpu":
         return gla_scan_ref(r, k, v, logw, u, initial_state=initial_state)
     if r.device.type != "cuda":
@@ -103,6 +141,11 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     lib = build.load("gla_scan", _SIGNATURES)
     B, T, H, K = r.shape
     V = v.shape[-1]
+    device = r.device.index or 0
+    if variant == "tc":
+        for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw)):
+            if t.data_ptr() % 16:  # copied in 16-byte pieces
+                raise ValueError(f"{name} must be 16-byte aligned")
     y = torch.empty_like(v)
     state = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     stream = torch.cuda.current_stream(r.device).cuda_stream
@@ -111,10 +154,12 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if u is None else u.data_ptr(),
         None if initial_state is None else initial_state.data_ptr(),
         y.data_ptr(), state.data_ptr(), B, T, H, K, V,
-        _DTYPE_CODE[r.dtype], r.device.index or 0, stream)
-    build.raise_on_error(lib, err, "gla_scan")
+        _DTYPE_CODE[r.dtype], _VARIANT_CODE[variant], device, stream)
+    build.raise_on_error(lib, err, f"gla_scan ({variant})")
     gla_scan.launches += 1
+    gla_scan.launches_by_variant[variant] += 1
     return y, state
 
 
 gla_scan.launches = 0
+gla_scan.launches_by_variant = {name: 0 for name in VARIANTS}
