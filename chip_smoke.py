@@ -11,7 +11,8 @@ Phases, each failing the run with a non-zero exit:
                simt kernel also at the bf16 serving shapes) and gla_scan
                (bf16 cases on tc and on simt, f32 cases on simt) against
                their plain versions on
-               the card, at the serving shapes and at edge cases
+               the card, at the serving and training shapes and at edge
+               cases
   4. wiring  - qwen3-4b, rwkv6-7b and hymba-1.5b at full width, 2 layers,
                f32: prefill + one decode step with the kernels vs with the
                plain versions (attn_impl="ref", gla_impl="chunked"); and
@@ -29,12 +30,32 @@ Phases, each failing the run with a non-zero exit:
                and the host's cost a call, and in CUDA graphs (device_ms);
                the chosen kernel and the simt kernel (the first design) in
                turns in the same run
+  7. grad    - gradients through the kernels' autograd Functions (kernel
+               forward, plain backward) against autograd of the plain
+               functions, at the serving and training shapes and a
+               ragged one; the raw
+               wrappers must refuse grad-requiring inputs
+  8. train_wiring - qwen3-4b and hymba-1.5b at full width, 2 layers, f32:
+               loss, every gradient and three make_train_step steps with
+               the kernels vs the all-plain model (attn_impl="chunked",
+               gla_impl="chunked") from the same weights, beside a
+               control with attention's q/k/v gradients zeroed
+  9. train   - the training main paths in bf16: qwen3-4b and hymba-1.5b
+               at full width and depth, rwkv6-7b at 8 layers, each on
+               batches of the JoSS policy-B pipeline and then one batch
+               repeated (its loss must fall); launches counted per run, one
+               step profiled; then qwen3-4b at 4 layers: n_micro 2 vs 1,
+               int8 compression, a checkpoint round trip
 Each phase prints JSON lines; the run ends with the nvidia-smi line, the
 kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
 """
+import dataclasses
 import itertools
 import json
+import math
+import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -42,16 +63,26 @@ from pathlib import Path
 
 import torch
 import torch.nn.functional as F
+from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.topology import VirtualCluster  # noqa: E402
+from repro_torch.data import JossDataPipeline, TokenStore  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gla_scan as gs  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels.autograd import BACKWARD_SPANS  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models.recurrence import gla_chunked  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
+from repro_torch.train import (OptConfig, TrainConfig, adamw_init,  # noqa: E402
+                               init_train_state, make_train_step)
+from repro_torch.train.checkpoint import AsyncCheckpointer  # noqa: E402
+from repro_torch.train.checkpoint import restore as ckpt_restore  # noqa: E402
 
 DEV = "cuda"  # the phases run on the card
 # H100 SXM data sheet (dense): HBM3 rate and bf16 tensor-core peak
@@ -146,7 +177,11 @@ def flash_cases():
             ("split_all_masked", 2, 1, 300, 10, 2, 64, True, 0, ar(1, -5),
              ar(300), dt, None),
         ]
+    _, TB, TS = TRAIN["qwen3-4b"][:3]
     cases += [
+        # qwen3-4b's training step (forward and remat recompute)
+        ("qwen3_train", TB, TS, TS, 32, 8, 128, True, 0, ar(TS), ar(TS),
+         bf16, None),
         # hymba's serving shapes: 5 q heads per kv head, window 1024
         ("hymba_prefill", 8, HP, HP, 25, 5, 64, True, 1024, ar(HP), ar(HP),
          bf16, None),
@@ -209,9 +244,12 @@ def gla_cases():
     the pairs of a sub-chunk)."""
     f32, bf16 = torch.float32, torch.bfloat16
     exp6 = -403.4287934927351
+    _, TB, TT = TRAIN["rwkv6-7b"][:3]
     return [
         # the serving shapes: rwkv6 (u-bonus) and hymba's SSM heads (no u)
         ("rwkv6_prefill", 8, 512, 64, 64, 64, True, False, None, bf16),
+        # rwkv6-7b's training step
+        ("rwkv6_train", TB, TT, 64, 64, 64, True, False, None, bf16),
         ("hymba_prefill", 8, 2048, 25, 16, 64, False, False, None, bf16),
         ("rwkv6_prefill", 2, 512, 64, 64, 64, True, False, None, f32),
         ("hymba_prefill", 2, 2048, 25, 16, 64, False, False, None, f32),
@@ -728,6 +766,475 @@ def phase_times():
     return per
 
 
+# ---------------------------------------------------------------- phase 7 --
+# gradients through the kernels' autograd Functions (kernel forward, the
+# plain version's backward) against autograd of the plain functions, as
+# ||g_fn - g_plain|| / ||g_plain|| for each input. The upstream gradient
+# is out - target, so each side's own forward output enters its gradient:
+# f32 differs only by summation order; bf16 by the kernel's f32
+# accumulation against the plain versions' bf16 (attention) and the tc
+# kernel's bf16 operands (GLA), as in the bf16 wiring lines
+GRAD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
+
+
+def grad_cases():
+    """flash: (name, B, S, H, G, D, window, dtype); gla: (name, B, T, H, K,
+    V, u, initial state, dtype). The serving shapes (bf16 at the serving
+    batch, f32 at B = 2), the training shapes of phase 9 (hymba's differ
+    from its serving one only in B) and a small ragged shape."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    _, P, _ = SERVE["qwen3-4b"]
+    _, HP, _ = SERVE["hymba-1.5b"]
+    _, QB, QS = TRAIN["qwen3-4b"][:3]
+    _, RB, RT = TRAIN["rwkv6-7b"][:3]
+    flash = [("qwen3_prefill", 8, P, 32, 8, 128, 0, bf16),
+             ("qwen3_train", QB, QS, 32, 8, 128, 0, bf16),
+             ("qwen3_prefill", 2, P, 32, 8, 128, 0, f32),
+             # 2 x window: the banded backward
+             ("hymba_prefill", 8, HP, 25, 5, 64, 1024, bf16),
+             ("hymba_prefill", 2, HP, 25, 5, 64, 1024, f32),
+             ("ragged", 3, 77, 6, 3, 32, 0, f32),
+             ("ragged_window", 2, 150, 10, 2, 64, 40, bf16)]
+    gla = [("rwkv6_prefill", 8, P, 64, 64, 64, True, False, bf16),
+           ("rwkv6_train", RB, RT, 64, 64, 64, True, False, bf16),
+           ("rwkv6_prefill", 2, P, 64, 64, 64, True, False, f32),
+           ("hymba_prefill", 8, HP, 25, 16, 64, False, False, bf16),
+           ("hymba_prefill", 2, HP, 25, 16, 64, False, False, f32),
+           ("ragged", 2, 77, 3, 16, 32, True, True, f32),
+           ("ragged_bf16", 3, 77, 4, 64, 64, True, True, bf16)]
+    return flash, gla
+
+
+def grads_of(fn, leaves, target):
+    """Gradients of 0.5 ||out - target||^2 (out: the first output)."""
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    loss = 0.5 * (out.float() - target).square().sum()
+    return torch.autograd.grad(loss, [t for t in leaves if t is not None])
+
+
+def grad_line(kernel, tag, dt, names, g_fn, g_plain, extra):
+    rel = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for n, a, b in zip(names, g_fn, g_plain)}
+    norms = {n: a.float().norm().item() for n, a in zip(names, g_fn)}
+    emit(phase="grad", kernel=kernel, case=tag, rel_err=rel, grad_norm=norms,
+         rtol=GRAD_RTOL[dt], **extra)
+    check(all(v > 0 for v in norms.values()), f"{kernel} {tag}: a zero "
+                                              f"gradient")
+    check(all(torch.isfinite(a).all() for a in g_fn), f"{kernel} {tag}: "
+                                                       f"non-finite gradient")
+    check(max(rel.values()) <= GRAD_RTOL[dt], f"{kernel} {tag}: gradients "
+                                               f"through the kernel's "
+                                               f"Function disagree")
+
+
+def phase_grad():
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    flash_cases_, gla_cases_ = grad_cases()
+    # the control: the raw wrappers on grad-requiring inputs must raise
+    q = rand((1, 8, 2, 64), torch.bfloat16, gen).requires_grad_()
+    raised = {}
+    try:
+        fa.flash_attention(q, q.detach()[:, :, :1], q.detach()[:, :, :1])
+        raised["flash_attention"] = False
+    except RuntimeError:
+        raised["flash_attention"] = True
+    r = rand((1, 8, 2, 16), torch.bfloat16, gen)
+    logw = (-torch.ones((1, 8, 2, 16), device=DEV)).requires_grad_()
+    try:
+        gs.gla_scan(r, r, r, logw)
+        raised["gla_scan"] = False
+    except RuntimeError:
+        raised["gla_scan"] = True
+    emit(phase="grad", control="raw wrapper on grad-requiring inputs",
+         raised=raised)
+    check(all(raised.values()), f"a raw wrapper took grad-requiring inputs "
+                                f"and handed back a detached output: "
+                                f"{raised}")
+    for name, B, S, H, G, D, window, dt in flash_cases_:
+        qkv = [rand(shape, dt, gen) for shape in
+               ((B, S, H, D), (B, S, G, D), (B, S, G, D))]
+        pos = ar(S)
+        target = torch.randn((B, S, H, D), generator=gen, device=DEV)
+        kw = dict(causal=True, window=window, qpos=pos, kpos=pos,
+                  self_attention=True)
+        g_fn = grads_of(lambda q, k, v: kops.flash_attention(q, k, v, **kw),
+                        [t.clone().requires_grad_() for t in qkv], target)
+        g_plain = grads_of(lambda q, k, v: cm.attention_plain(q, k, v, **kw),
+                           [t.clone().requires_grad_() for t in qkv], target)
+        torch.cuda.synchronize()
+        banded = bool(window and S % window == 0 and S >= 2 * window)
+        grad_line("flash_attention", f"{name}/{str(dt).split('.')[-1]}", dt,
+                  "qkv", g_fn, g_plain,
+                  dict(shape=[B, S, S, H, G, D], window=window,
+                       backward="banded" if banded else "chunked"))
+        del qkv, g_fn, g_plain
+    for name, B, T, H, K, V, use_u, init, dt in gla_cases_:
+        r, k, v, logw, u, s0 = gla_inputs(B, T, H, K, V, use_u, init, None,
+                                          dt, gen)
+        target = torch.randn((B, T, H, V), generator=gen, device=DEV)
+        ins = [r, k, v, logw, u, s0]
+        names = [n for n, t in zip(("r", "k", "v", "logw", "u", "s0"), ins)
+                 if t is not None]
+
+        def leaves():
+            return [None if t is None else t.clone().requires_grad_()
+                    for t in ins]
+
+        g_fn = grads_of(lambda r, k, v, w, u, s: kops.gla(
+            r, k, v, w, u, initial_state=s), leaves(), target)
+        g_plain = grads_of(lambda r, k, v, w, u, s: gs.gla_scan_ref(
+            r, k, v, w, u, initial_state=s), leaves(), target)
+        torch.cuda.synchronize()
+        grad_line("gla_scan", f"{name}/{str(dt).split('.')[-1]}", dt, names,
+                  g_fn, g_plain, dict(shape=[B, T, H, K, V], u=use_u,
+                                      initial_state=init))
+        del ins, g_fn, g_plain
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 8 --
+# train steps of the model with the kernels against the all-plain model
+# from the same weights, f32, 2 layers at full width. Gradients differ by
+# f32 summation order (TF32 off): each parameter's gradient within
+# TRAIN_GRAD_RTOL of the plain one in norm; loss and grad norm closer.
+# Params after TRAIN_WIRING_STEPS steps on one batch, as ||p_kernel -
+# p_plain|| / ||p_plain - p_0|| over all params: AdamW moves each param by
+# ~lr * sign(g) whatever the gradient's size, so one step's max abs change
+# stays within 2 lr for any gradients; the norm over all params after a
+# few steps, where the moments weigh the gradients, sees a wrong gradient.
+# The control reading (the gradients that reach q/k/v only through the
+# attention zeroed, as a detached kernel output would give) must exceed
+# TRAIN_PARAM_RTOL, or the check could not fail. On an H100 the sound
+# runs read 2.2e-5 and 1.8e-4, the controls 0.24-0.26 (PERF.md): 1e-2
+# sits well apart from both
+TRAIN_WIRING = [
+    # (arch, B, S): hymba at S = 2 x window, so its backward is banded
+    ("qwen3-4b", 2, 512),
+    ("hymba-1.5b", 2, 2048),
+]
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4, 1e-3
+TRAIN_PARAM_RTOL = 1e-2
+TRAIN_WIRING_STEPS = 3
+WIRING_LR = 1e-4
+CONTROL_ZEROED = ("attn.wq", "attn.wk", "attn.wv", "attn.q_norm",
+                  "attn.k_norm", "attn.bq", "attn.bk", "attn.bv")
+
+
+def wiring_steps(cfg, batch, kw, zeroed=()):
+    """The loss and gradients of the first batch, then TRAIN_WIRING_STEPS
+    make_train_step steps on it: (loss, grads, step metrics, param change).
+    Params whose names end in ``zeroed`` get zero gradients."""
+    model = build_model(cfg, device=DEV, **kw)
+    model.init_params(torch.Generator(device=DEV).manual_seed(7))
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    for n, p in model.named_parameters():
+        if n.endswith(zeroed):
+            p.register_hook(torch.zeros_like)
+    loss, _ = model.loss(batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    state = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(model, TrainConfig(opt=OptConfig(
+        lr=WIRING_LR, warmup_steps=0)))
+    mets = []
+    for _ in range(TRAIN_WIRING_STEPS):
+        state, met = step(state, batch)
+        mets.append({k: v.item() for k, v in met.items()})
+    delta = {n: p.detach() - before[n] for n, p in model.named_parameters()}
+    return loss.item(), grads, mets, delta
+
+
+def tree_rel(a, b):
+    """||a - b|| / ||b|| over every leaf of two dicts of tensors."""
+    num = sum((a[n].double() - b[n].double()).square().sum() for n in b)
+    return math.sqrt(num / sum(t.double().square().sum() for t in b.values()))
+
+
+def phase_train_wiring():
+    for arch, B, S in TRAIN_WIRING:
+        cfg = get_config(arch).scaled(n_layers=2, dtype="float32")
+        toks = torch.randint(0, cfg.vocab, (B, S), device=DEV,
+                             generator=torch.Generator(device=DEV)
+                             .manual_seed(6))
+        batch = {"tokens": toks}
+        plain = dict(attn_impl="chunked", gla_impl="chunked")
+        k_loss, k_g, k_met, k_d = wiring_steps(
+            cfg, batch, dict(attn_impl="flash", gla_impl="kernel"))
+        p_loss, p_g, p_met, p_d = wiring_steps(cfg, batch, plain)
+        grad_rel = {n: ((k_g[n] - g).norm() / g.norm()).item()
+                    for n, g in p_g.items() if g.norm() > 0}
+        worst = max(grad_rel, key=grad_rel.get)
+        zero_grads = sorted(set(p_g) - set(grad_rel))
+        del k_g, p_g
+        param_rel = tree_rel(k_d, p_d)
+        dp_diff = max((k_d[n] - d).abs().max().item() for n, d in p_d.items())
+        dp_max = max(d.abs().max().item() for d in p_d.values())
+        del k_d
+        c_d = wiring_steps(cfg, batch, plain, CONTROL_ZEROED)[3]
+        control_rel = tree_rel(c_d, p_d)
+        del c_d, p_d
+        loss_rel = abs(k_loss - p_loss) / abs(p_loss)
+        gn_k, gn_p = k_met[0]["grad_norm"], p_met[0]["grad_norm"]
+        emit(phase="train_wiring", arch=cfg.name, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, dtype=cfg.dtype, batch=B, seq_len=S,
+             kernel="attn_impl=flash, gla_impl=kernel",
+             plain="attn_impl=chunked, gla_impl=chunked",
+             loss=[k_loss, p_loss], loss_rel_err=loss_rel,
+             step_loss=[[m["loss"] for m in k_met],
+                        [m["loss"] for m in p_met]],
+             grad_norm=[gn_k, gn_p], grad_norm_rel_err=abs(gn_k - gn_p) / gn_p,
+             grad_rel_err_max=grad_rel[worst], grad_rel_err_worst=worst,
+             zero_grads=zero_grads,
+             steps=TRAIN_WIRING_STEPS, param_rel_err=param_rel,
+             control="plain, zero gradients into " + "/".join(CONTROL_ZEROED),
+             control_param_rel_err=control_rel, param_change_max=dp_max,
+             param_change_max_abs_diff=dp_diff, lr=WIRING_LR,
+             loss_rtol=TRAIN_LOSS_RTOL, grad_norm_rtol=TRAIN_GNORM_RTOL,
+             grad_rtol=TRAIN_GRAD_RTOL, param_rtol=TRAIN_PARAM_RTOL)
+        check(math.isfinite(k_loss) and loss_rel <= TRAIN_LOSS_RTOL
+              and abs(gn_k - gn_p) / gn_p <= TRAIN_GNORM_RTOL
+              and grad_rel[worst] <= TRAIN_GRAD_RTOL,
+              f"{arch}: the train step with the kernels disagrees with the "
+              f"plain model")
+        check(dp_max > 0 and param_rel <= TRAIN_PARAM_RTOL,
+              f"{arch}: params moved differently: {param_rel}")
+        check(control_rel > TRAIN_PARAM_RTOL,
+              f"{arch}: the control's params are within TRAIN_PARAM_RTOL "
+              f"({control_rel}): the param check could not fail")
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- phase 9 --
+# the training main paths, bf16: steps on batches of the JoSS policy-B
+# pipeline over VirtualCluster([4, 4]), then one batch repeated, whose
+# loss must fall. rwkv6-7b at 8 of its 32 layers: its f32 AdamW moments
+# alone (7.6 B params x 8 bytes) would fill the card's 80 GB
+TRAIN = {
+    # arch -> (layers (None = the full depth), batch, seq len, steps on
+    # pipeline batches, steps on the last of them repeated, layers of the
+    # profiled step). hymba-1.5b takes ~9-10 s a step (its plain GLA
+    # backward loops over 64 chunks a layer from the host, ~400 k small
+    # ops a step), and its step is profiled at 4 layers: the profiler's
+    # Python side took 211 s over the 32
+    "qwen3-4b": (None, 4, 1024, 5, 3, None),
+    "hymba-1.5b": (None, 4, 2048, 5, 3, 4),
+    "rwkv6-7b": (8, 4, 1024, 5, 3, None),
+}
+TRAIN_OPT = OptConfig(lr=1e-3, warmup_steps=0, total_steps=1000)
+# the 4-layer qwen3-4b runs: n_micro 2 against 1 on one batch (loss and
+# grad norm: bf16 matmuls on half the rows, f32 accumulation against the
+# bf16 gradient), compression, and a checkpoint round trip
+MICRO_LOSS_RTOL, MICRO_GNORM_RTOL = 5e-3, 2e-2
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+
+
+def reset_counts():
+    for fn in (fa.flash_attention, gs.gla_scan):
+        fn.launches = 0
+        for name in fn.launches_by_variant:
+            fn.launches_by_variant[name] = 0
+
+
+def timed_step(step, state, batch):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, met = step(state, batch)
+    torch.cuda.synchronize()
+    return state, met, time.perf_counter() - t0
+
+
+def profile_step(step, state, batch):
+    """One train step under torch.profiler: device ms of every kernel, of
+    the kernels' forward launches and of the Functions' backward spans
+    (the plain recompute)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    spans = set(BACKWARD_SPANS.values())
+    out = {"step_device_ms": 0.0, "flash_forward_device_ms": 0.0,
+           "gla_forward_device_ms": 0.0}
+    out.update({f"{k}_backward_device_ms": 0.0 for k in BACKWARD_SPANS})
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            if e.name in spans or e.name.startswith("Command Buffer"):
+                continue
+            us = e.time_range.elapsed_us()
+            out["step_device_ms"] += us / 1e3
+            if "attn_fwd" in e.name or "attn_decode" in e.name:
+                out["flash_forward_device_ms"] += us / 1e3
+            elif "gla_fwd" in e.name:
+                out["gla_forward_device_ms"] += us / 1e3
+        elif e.name in spans:
+            kernel = next(k for k, v in BACKWARD_SPANS.items() if v == e.name)
+            out[f"{kernel}_backward_device_ms"] += e.device_time_total / 1e3
+    return state, out
+
+
+def run_train(arch):
+    layers, B, S, pipe_steps, repeat_steps, prof_layers = TRAIN[arch]
+    cfg = get_config(arch)
+    cfg = cfg.scaled(n_layers=layers) if layers else cfg
+    attn = cfg.family in ("dense", "hybrid")
+    gla = cfg.family in ("ssm", "hybrid")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg, device=DEV)
+    tcfg = TrainConfig(opt=TRAIN_OPT)
+    state = init_train_state(model, torch.Generator(device=DEV)
+                             .manual_seed(8), tcfg)
+    step = make_train_step(model, tcfg)
+    store = TokenStore(VirtualCluster([4, 4]), n_shards=32, seqs_per_shard=8,
+                       seq_len=S, vocab=cfg.vocab, seed=0)
+    pipe = JossDataPipeline(store, global_batch=B, seed=1)
+    batches = [torch.as_tensor(b, device=DEV) for b in pipe.batches(
+        pipe_steps)]
+    batches += [batches[-1]] * repeat_steps
+    n_steps = len(batches)
+    reset_counts()
+    losses, gnorms, secs = [], [], []
+    for toks in batches:
+        state, met, s = timed_step(step, state, {"tokens": toks})
+        losses.append(met["loss"].item())
+        gnorms.append(met["grad_norm"].item())
+        secs.append(s)
+    got = {"flash_attention": fa.flash_attention.launches,
+           "gla_scan": gs.gla_scan.launches}
+    variants = {"flash_attention": dict(fa.flash_attention
+                                        .launches_by_variant),
+                "gla_scan": dict(gs.gla_scan.launches_by_variant)}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # each layer's kernel runs twice a step: the forward and the remat
+    # recompute in the backward (the backward itself is plain)
+    want = {"flash_attention": 2 * cfg.n_layers * n_steps if attn else 0,
+            "gla_scan": 2 * cfg.n_layers * n_steps if gla else 0}
+    med = statistics.median(secs[1:])
+    rep = pipe.locality_report()
+    n_params = sum(p.numel() for p in model.parameters())
+    if prof_layers:  # the same step on a shallower copy, after a warm-up
+        del model, state, step
+        model = build_model(cfg.scaled(n_layers=prof_layers), device=DEV)
+        state = init_train_state(model, torch.Generator(device=DEV)
+                                 .manual_seed(8), tcfg)
+        step = make_train_step(model, tcfg)
+        state, _ = step(state, {"tokens": batches[-1]})
+    t0 = time.perf_counter()
+    state, prof = profile_step(step, state, {"tokens": batches[-1]})
+    prof["seconds"] = time.perf_counter() - t0
+    prof["n_layers"] = prof_layers or cfg.n_layers
+    emit(phase="train", arch=cfg.name, n_layers=cfg.n_layers,
+         full_depth=layers is None, d_model=cfg.d_model, dtype=cfg.dtype,
+         params=n_params, batch=B, seq_len=S, n_micro=1, steps=n_steps,
+         pipeline_steps=pipe_steps, repeated_steps=repeat_steps,
+         s_per_step=secs, median_s_per_step=med,
+         tokens_per_s=B * S / med, peak_mem_gb=peak, losses=losses,
+         grad_norms=gnorms, launches=got, expected_launches=want,
+         launches_by_variant=variants,
+         locality={"host": rep.host_rate, "pod": rep.pod_rate,
+                   "off_pod": rep.off_pod_rate},
+         profile=prof)
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"{arch}: non-finite loss or grad norm")
+    rep_losses = losses[pipe_steps:]
+    check(rep_losses[-1] < rep_losses[0], f"{arch}: the loss on the "
+                                          f"repeated batch did not fall: "
+                                          f"{rep_losses}")
+    check(got == want, f"{arch}: train launches {got}, expected {want}")
+    check(variants["flash_attention"]["tc"] == want["flash_attention"]
+          and variants["gla_scan"]["tc"] == want["gla_scan"],
+          f"{arch}: bf16 training should launch only tc kernels: "
+          f"{variants}")
+    del model, state, step
+    torch.cuda.empty_cache()
+    return got, prof
+
+
+def equal_trees(a, b):
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(equal_trees(a[k], b[k])
+                                            for k in a)
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+
+
+def run_train_small():
+    """qwen3-4b at 4 layers, bf16: n_micro 2 against n_micro 1 on one
+    batch from the same weights, one step with int8 compression and bf16
+    moments, and an AsyncCheckpointer round trip of its params and
+    optimizer state (moments and error feedback)."""
+    B, S = 4, 1024
+    cfg = get_config("qwen3-4b").scaled(n_layers=4)
+    toks = torch.randint(0, cfg.vocab, (B, S), device=DEV,
+                         generator=torch.Generator(device=DEV)
+                         .manual_seed(9))
+    batch = {"tokens": toks}
+    model = build_model(cfg, device=DEV)
+    res = {}
+    bf16_state = dataclasses.replace(TRAIN_OPT, state_dtype="bfloat16")
+    for name, kw in (("n_micro1", {}), ("n_micro2", dict(n_micro=2)),
+                     ("compress", dict(compress_grads=True,
+                                       opt=bf16_state))):
+        tcfg = TrainConfig(**dict(dict(opt=TRAIN_OPT), **kw))
+        state = init_train_state(model, torch.Generator(device=DEV)
+                                 .manual_seed(10), tcfg)
+        state, met, s = timed_step(make_train_step(model, tcfg), state, batch)
+        res[name] = {"loss": met["loss"].item(),
+                     "grad_norm": met["grad_norm"].item(), "s": s,
+                     "has_ef": "ef" in state}
+        if name == "n_micro1":
+            p1 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        elif name == "n_micro2":
+            res[name]["param_max_abs_diff_vs_n_micro1"] = max(
+                (p.detach().float() - p1[n].float()).abs().max().item()
+                for n, p in model.named_parameters())
+            del p1
+    tree = {"params": model.state_dict(), "opt": state}
+    t0 = time.perf_counter()
+    saver = AsyncCheckpointer(str(CKPT_DIR), keep=1)
+    saver.submit(1, tree)
+    submit_s = time.perf_counter() - t0
+    saver.wait()
+    save_s = time.perf_counter() - t0
+    back, step = ckpt_restore(str(CKPT_DIR), tree)
+    restore_s = time.perf_counter() - t0 - save_s
+    bit_equal = step == 1 and equal_trees(back, tree)
+    nbytes = sum(f.stat().st_size for f in CKPT_DIR.rglob("*") if f.is_file())
+    shutil.rmtree(CKPT_DIR)
+    m1, m2 = res["n_micro1"], res["n_micro2"]
+    emit(phase="train", arch=cfg.name, n_layers=cfg.n_layers, batch=B,
+         seq_len=S, dtype=cfg.dtype, runs=res,
+         loss_rel_err_n_micro=abs(m2["loss"] - m1["loss"]) / m1["loss"],
+         grad_norm_rel_err_n_micro=abs(m2["grad_norm"] - m1["grad_norm"])
+         / m1["grad_norm"], loss_rtol=MICRO_LOSS_RTOL,
+         grad_norm_rtol=MICRO_GNORM_RTOL,
+         checkpoint={"bit_equal": bit_equal, "bytes": nbytes,
+                     "submit_s": submit_s, "save_s": save_s,
+                     "restore_s": restore_s, "with_ef": "ef" in state})
+    check(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+              for r in res.values()), "non-finite loss in the 4-layer runs")
+    check(abs(m2["loss"] - m1["loss"]) / m1["loss"] <= MICRO_LOSS_RTOL
+          and abs(m2["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+          <= MICRO_GNORM_RTOL, "n_micro 2 disagrees with n_micro 1")
+    check(res["compress"]["has_ef"], "no error-feedback state")
+    check(bit_equal, "the checkpoint round trip did not give back the "
+                     "same tensors")
+    del model, state, tree, back
+    torch.cuda.empty_cache()
+
+
+def phase_train():
+    """The training runs with every launch count set to 0 just before each
+    and read just after; returns ({arch: launches}, {arch: profile})."""
+    launches, profiles = {}, {}
+    for arch in TRAIN:
+        launches[arch], profiles[arch] = run_train(arch)
+    run_train_small()
+    return launches, profiles
+
+
 PER_CALL_KEYS = ("shape", "variant", "n_split", "ms", "host_us",
                  "device_ms", "simt_ms", "simt_host_us", "simt_device_ms",
                  "plain_ms", "library_ms", "library_host_us",
@@ -795,15 +1302,28 @@ def main() -> None:
     emit(phase="build", seconds=time.perf_counter() - t0,
          libraries=[p.name for p in libs], ptxas=ptxas)
 
-    errs = phase_kernel()
-    phase_wiring()
-    launches, variants = phase_serve()
-    per = phase_times()
-
-    def by_kernel(kernel):
-        return {arch: n[kernel] for arch, n in launches.items() if n[kernel]}
+    done = {}
+    runs = {"kernel": phase_kernel, "wiring": phase_wiring,
+            "serve": phase_serve, "times": phase_times, "grad": phase_grad,
+            "train_wiring": phase_train_wiring, "train": phase_train}
+    for name, run in runs.items():
+        t0 = time.perf_counter()
+        done[name] = run()
+        emit(phase="phase_seconds", name=name,
+             seconds=time.perf_counter() - t0)
 
     print(smi, flush=True)
+    emit(kernels=kernels_line(done["kernel"], *done["serve"], done["times"],
+                              *done["train"]))
+    emit(ok=True, device={"platform": "gpu",
+                          "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()})
+
+
+def kernels_line(errs, launches, variants, per, launches_train, profiles):
+    def by_kernel(kernel, runs):
+        return {arch: n[kernel] for arch, n in runs.items() if n[kernel]}
+
     def serving_err(tag):  # bf16 serving shapes, the variant chosen there
         name, dtype, variant = tag.split("/")[:3]
         return (name in ("prefill", "decode", "hymba_prefill",
@@ -814,25 +1334,35 @@ def main() -> None:
         "flash_attention",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:27",
-        by_kernel("flash_attention"),
+        by_kernel("flash_attention", launches),
         max(v for k, v in errs.items()
             if k.startswith("flash_attention:")
             and serving_err(k.split(":")[1])),
         per)
     gla = kernel_entry(
         "gla_scan", "src/repro_torch/kernels/csrc/gla_scan.cu",
-        "src/repro/kernels/gla_scan.py:30", by_kernel("gla_scan"),
+        "src/repro/kernels/gla_scan.py:30", by_kernel("gla_scan", launches),
         max(errs[f"gla_scan:{name}_prefill/bfloat16/tc"]
             for name in ("rwkv6", "hymba")),
         per)
+    fwd_key = {"flash_attention": "flash_forward_device_ms",
+               "gla_scan": "gla_forward_device_ms"}
     for entry in (flash, gla):
+        name = entry["name"]
         entry["launches_by_variant"] = {
-            arch: n[entry["name"]] for arch, n in variants.items()
-            if any(n[entry["name"]].values())}
-    emit(kernels=[flash, gla])
-    emit(ok=True, device={"platform": "gpu",
-                          "kind": torch.cuda.get_device_name(0),
-                          "count": torch.cuda.device_count()})
+            arch: n[name] for arch, n in variants.items()
+            if any(n[name].values())}
+        # the training runs: launches (forward + remat recompute), and
+        # from one profiled step, the kernel's forward device time beside
+        # the device time of its plain backward (the recompute)
+        entry["launches_train"] = by_kernel(name, launches_train)
+        entry["train_step_device_ms"] = {
+            arch: {"forward_kernel": prof[fwd_key[name]],
+                   "backward_plain": prof[f"{name}_backward_device_ms"],
+                   "step": prof["step_device_ms"],
+                   "n_layers": prof["n_layers"]}
+            for arch, prof in profiles.items() if launches_train[arch][name]}
+    return [flash, gla]
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
-"""Carry parameters from the JAX package's models into the port.
+"""Carry parameters (and AdamW moments) between the JAX package's models
+and the port.
 
 The JAX side hands over its param tree as nested dicts of numpy arrays
-(``jax.tree_util.tree_map(np.asarray, params)``); this module never imports
-JAX. The port keeps JAX's (in, out) weight layout, so the conversion splits
-the stacked (L, ...) layer leaves and renames; nothing is transposed.
+(``jax.tree_util.tree_map(np.asarray, params)``), or a checkpoint of it
+read back by ``repro_torch.train.checkpoint.restore`` as tensors; this
+module never imports JAX. The port keeps JAX's (in, out) weight layout, so
+the conversion splits the stacked (L, ...) layer leaves and renames;
+nothing is transposed. ``params_to_numpy`` goes the other way.
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ from repro_torch.configs.base import ArchConfig
 
 def to_tensor(a: Any) -> torch.Tensor:
     """numpy (including ml_dtypes bfloat16, which ``torch.from_numpy``
-    refuses) -> a CPU tensor of the same dtype and values."""
+    refuses) or a tensor -> a CPU tensor of the same dtype and values."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().clone()
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
@@ -51,10 +56,56 @@ def params_from_jax(cfg: ArchConfig,
     for path, leaf in _leaves(tree["final_norm"], "final_norm"):
         sd[path] = to_tensor(leaf)
     for path, stacked in _leaves(tree["layers"], ""):
-        stacked = np.asarray(stacked)
+        stacked = to_tensor(stacked)
         if stacked.shape[0] != cfg.n_layers:
             raise ValueError(f"layers{path}: leading dim {stacked.shape[0]} "
                              f"!= {cfg.n_layers}")
         for i in range(cfg.n_layers):
-            sd[f"layers.{i}{path}"] = to_tensor(stacked[i])
+            sd[f"layers.{i}{path}"] = stacked[i].clone()
     return sd
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 comes back as f32 (numpy has no bf16 of
+    its own), exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def params_to_numpy(cfg: ArchConfig,
+                    state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: the port's per-layer leaves
+    (``layers.{i}.<path>``) restacked to (L, ...) under the JAX tree's
+    nested dicts, every leaf a numpy array (bf16 as f32)."""
+    tree: Dict[str, Any] = {}
+    per_layer: Dict[str, list] = {}
+    for name, t in state_dict.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(".".join(parts[2:]), []).append(
+                (int(parts[1]), t))
+        else:
+            _put(tree, parts, _to_numpy(t))
+    for path, items in per_layer.items():
+        items.sort(key=lambda it: it[0])
+        if [i for i, _ in items] != list(range(cfg.n_layers)):
+            raise ValueError(f"layers.*.{path}: layers {[i for i, _ in items]}"
+                             f", expected 0..{cfg.n_layers - 1}")
+        _put(tree, ["layers"] + path.split("."),
+             np.stack([_to_numpy(t) for _, t in items]))
+    return tree
+
+
+def _put(tree: Dict[str, Any], path, leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def opt_state_from_jax(cfg: ArchConfig,
+                       state: Mapping[str, Any]) -> Dict[str, Any]:
+    """JAX AdamW state ``{"m", "v", "step"}`` (trees shaped as the params)
+    -> the port's ``{"m": {name: tensor}, "v": ..., "step"}`` on the CPU."""
+    return {"m": params_from_jax(cfg, state["m"]),
+            "v": params_from_jax(cfg, state["v"]),
+            "step": to_tensor(state["step"]).to(torch.int32).reshape(())}

@@ -17,7 +17,9 @@ wrapper picks one by dtype and Sq (``choose_variant``):
   f32 as TF32).
 
 On a CPU tensor the wrapper runs ``flash_attention_ref``. On a CUDA tensor
-it launches the chosen kernel or raises.
+it launches the chosen kernel or raises. Its output has no ``grad_fn``, so
+it refuses inputs that require grad under grad mode, on any device;
+``kernels.autograd.FlashAttentionFn`` carries the gradient.
 """
 from __future__ import annotations
 
@@ -29,6 +31,8 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import refuse_grad
+from repro_torch.models.common import acc_dtype
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -68,11 +72,13 @@ def _mask(qp: torch.Tensor, kp: torch.Tensor, causal: bool,
 
 def _scores(q: torch.Tensor, k: torch.Tensor, ok: torch.Tensor
             ) -> torch.Tensor:
-    """(B, G, H/G, Sq, Sk) f32 scores, NEG_INF where masked."""
+    """(B, G, H/G, Sq, Sk) scores in f32 (f64 for f64 inputs), NEG_INF
+    where masked."""
     B, Sq, H, D = q.shape
     G = k.shape[2]
-    qg = q.float().reshape(B, Sq, G, H // G, D)
-    s = torch.einsum("bsgqd,btgd->bgqst", qg, k.float()) * (1.0 / math.sqrt(D))
+    acc = acc_dtype(q)
+    qg = q.to(acc).reshape(B, Sq, G, H // G, D)
+    s = torch.einsum("bsgqd,btgd->bgqst", qg, k.to(acc)) * (1.0 / math.sqrt(D))
     return torch.where(ok, s, torch.tensor(NEG_INF, dtype=s.dtype,
                                            device=s.device))
 
@@ -97,7 +103,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = _scores(q, k, ok)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = torch.where(ok, p, torch.zeros((), dtype=p.dtype, device=p.device))
-    acc = torch.einsum("bgqst,btgd->bsgqd", p, v.float())
+    acc = torch.einsum("bgqst,btgd->bsgqd", p, v.to(p.dtype))
     return _finish(acc, p.sum(dim=-1, keepdim=True), q)
 
 
@@ -130,7 +136,8 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.where(oki, torch.exp(si - m), zero)
         ms.append(m)
         ls.append(p.sum(dim=-1, keepdim=True))
-        accs.append(torch.einsum("bgqst,btgd->bsgqd", p, v[:, lo:hi].float()))
+        accs.append(torch.einsum("bgqst,btgd->bsgqd", p,
+                                 v[:, lo:hi].to(p.dtype)))
     M = torch.stack(ms).amax(dim=0)
     w = [torch.exp(m - M) for m in ms]                 # (B, G, H/G, Sq, 1)
     l = sum(wi * li for wi, li in zip(w, ls))
@@ -236,7 +243,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``variant`` (default ``choose_variant``) and ``n_split`` (default
     ``decode_splits``; split only) pin the kernel for measurements and
-    checks; the model path passes neither."""
+    checks; the model path passes neither. Raises on inputs that require
+    grad under grad mode (``kernels.ops`` carries gradients)."""
+    refuse_grad("flash_attention", q, k, v)
     if variant is None:
         variant = choose_variant(q.dtype, q.shape[1])
     else:

@@ -18,7 +18,10 @@ picks one by dtype (``choose_variant``):
   would run f32 as TF32).
 
 ``gla_scan_ref`` is the plain version of both. On a CPU tensor the wrapper
-runs it. On a CUDA tensor it launches the chosen kernel or raises.
+runs it. On a CUDA tensor it launches the chosen kernel or raises. Its
+outputs have no ``grad_fn``, so it refuses inputs that require grad under
+grad mode, on any device; ``kernels.autograd.GlaScanFn`` carries the
+gradients.
 
 Precondition of both kernels: logw <= 0 (a decay, as both models make it:
 RWKV6's -exp(.), hymba's dt * -exp(a_log)). Every exponent they take is
@@ -35,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.models.recurrence import gla_chunked
 
 CHUNK = 32                      # the kernel's chunk length
@@ -129,7 +133,10 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for logw <= 0.
 
     ``variant`` (default ``choose_variant``) pins the kernel, for
-    measurements and checks; the model path does not pass it."""
+    measurements and checks; the model path does not pass it. Raises on
+    inputs that require grad under grad mode (``kernels.ops`` carries
+    gradients)."""
+    refuse_grad("gla_scan", r, k, v, logw, u, initial_state)
     if variant is not None:
         _check_variant(variant, r.dtype)
     variant = variant or choose_variant(r.dtype)

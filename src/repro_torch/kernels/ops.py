@@ -3,7 +3,10 @@
 
 The kernels take the model layout, so no transpose or GQA broadcast
 happens here: kv head h // (H/G) is read by index inside the attention
-kernel, and the GLA scan reads (B, T, H, K/V) as it is.
+kernel, and the GLA scan reads (B, T, H, K/V) as it is. When grad mode is
+on and an input requires grad, the call goes through the autograd
+Function of ``kernels.autograd``: the kernel forward, the plain version's
+backward.
 """
 from __future__ import annotations
 
@@ -13,20 +16,28 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import gla_scan as _gla
+from repro_torch.kernels.autograd import (FlashAttentionFn, GlaScanFn,
+                                          wants_grad)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     qpos: Optional[torch.Tensor] = None,
-                    kpos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kpos: Optional[torch.Tensor] = None,
+                    self_attention: bool = False) -> torch.Tensor:
     """Flash attention. q (B,S,H,D), k/v (B,S,G,D) model layout, positions
-    of any integer type; returns (B,S,H,D)."""
+    of any integer type; returns (B,S,H,D). ``self_attention`` (qpos and
+    kpos are the same positions) lets the backward take the banded plain
+    version, as JAX trains through it."""
     if qpos is not None:
         qpos = qpos.to(device=q.device, dtype=torch.int32).contiguous()
     if kpos is not None:
         kpos = kpos.to(device=q.device, dtype=torch.int32).contiguous()
-    return _fa.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=window,
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, qpos, kpos,
+                                      self_attention)
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                qpos=qpos, kpos=kpos)
 
 
@@ -41,6 +52,8 @@ def gla(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         u = u.to(f32).contiguous()
     if initial_state is not None:
         initial_state = initial_state.to(f32).contiguous()
-    return _gla.gla_scan(r.contiguous(), k.contiguous(), v.contiguous(),
-                         logw.to(f32).contiguous(), u,
-                         initial_state=initial_state)
+    args = (r.contiguous(), k.contiguous(), v.contiguous(),
+            logw.to(f32).contiguous(), u, initial_state)
+    if wants_grad(*args):
+        return GlaScanFn.apply(*args)
+    return _gla.gla_scan(*args[:5], initial_state=initial_state)

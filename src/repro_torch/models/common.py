@@ -63,6 +63,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 # --------------------------------------------------------------- attention --
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' accumulation type: f32, or f64 for f64 inputs
+    (so that ``gradcheck`` can run them in f64)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _mask_bias(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
                window: int) -> torch.Tensor:
     """Additive mask bias (0 or -inf), f32 (Sq, Sk). kpos < 0 marks invalid
@@ -93,7 +99,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     qpos = _arange(Sq, q) if qpos is None else qpos.long()
     kpos = _arange(k.shape[1], q) if kpos is None else kpos.long()
     qg = q.reshape(B, Sq, G, H // G, D)
-    scores = torch.einsum("bsgqd,btgd->bgqst", qg.float(), k.float())
+    acc = acc_dtype(q)
+    scores = torch.einsum("bsgqd,btgd->bgqst", qg.to(acc), k.to(acc))
     scores = scores * (1.0 / math.sqrt(D))
     scores = scores + _mask_bias(qpos, kpos, causal, window)
     # rows with no valid key (fully masked) must not produce nan
@@ -122,16 +129,17 @@ def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
         kpos = F.pad(kpos, (0, pad), value=-1)
     n_blocks = k.shape[1] // block_k
-    qg = q.reshape(B, Sq, G, H // G, D).float()
+    f = acc_dtype(q)
+    qg = q.reshape(B, Sq, G, H // G, D).to(f)
     scale = 1.0 / math.sqrt(D)
 
-    m = torch.full((B, G, H // G, Sq), -math.inf, device=q.device)
-    l = torch.zeros((B, G, H // G, Sq), device=q.device)
+    m = torch.full((B, G, H // G, Sq), -math.inf, dtype=f, device=q.device)
+    l = torch.zeros((B, G, H // G, Sq), dtype=f, device=q.device)
     acc = torch.zeros((B, G, H // G, Sq, D), dtype=v.dtype, device=q.device)
     for i in range(n_blocks):
         blk = slice(i * block_k, (i + 1) * block_k)
         kblk, vblk, kp = k[:, blk], v[:, blk], kpos[blk]
-        s = torch.einsum("bsgqd,btgd->bgqst", qg, kblk.float()) * scale
+        s = torch.einsum("bsgqd,btgd->bgqst", qg, kblk.to(f)) * scale
         s = s + _mask_bias(qpos, kp, causal, window)
         m_new = torch.maximum(m, s.amax(dim=-1))
         # renormalize previous accumulator (guard -inf - -inf = nan)
@@ -180,6 +188,29 @@ def attention_banded(q, k, v, *, window: int,
                                   causal=True, window=w,
                                   qpos=qpos[i * w:(i + 1) * w], kpos=kpc))
     return torch.cat(outs, dim=1)
+
+
+def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
+                    qpos: Optional[torch.Tensor] = None,
+                    kpos: Optional[torch.Tensor] = None,
+                    self_attention: bool = True,
+                    impl: str = "chunked") -> torch.Tensor:
+    """The plain attention the JAX package trains through, the dispatch of
+    JAX ``transformer.causal_attention``: banded O(S*w) when a sliding
+    window tiles a causal self-attention at least twice, else ``impl``:
+    ``"chunked"`` online softmax with ``block_k = min(1024, max(S, 128))``
+    (JAX's), or ``"ref"``. ``self_attention`` says that qpos and kpos are
+    the same positions."""
+    S = k.shape[1]
+    w = window
+    if (causal and self_attention and w and q.shape[1] == S and S % w == 0
+            and S >= 2 * w):
+        return attention_banded(q, k, v, window=w, qpos=qpos, kpos=kpos)
+    if impl == "ref":
+        return attention_ref(q, k, v, causal=causal, window=w, qpos=qpos,
+                             kpos=kpos)
+    return attention_chunked(q, k, v, causal=causal, window=w, qpos=qpos,
+                             kpos=kpos, block_k=min(1024, max(S, 128)))
 
 
 ATTN_IMPLS: Dict[str, Callable] = {

@@ -22,6 +22,8 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.models.common import acc_dtype
+
 GLA_IMPLS = ("kernel", "chunked")
 
 
@@ -42,7 +44,7 @@ def gla_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if T % c:
         raise ValueError(f"T={T} must be divisible by chunk={c}")
     n = T // c
-    f32 = torch.float32
+    f32 = acc_dtype(v)  # f64 stays f64
 
     def split(x, d):  # (B, T, H, d) -> (n, B, H, c, d)
         return x.to(f32).reshape(B, n, c, H, d).permute(1, 0, 3, 2, 4)

@@ -9,11 +9,18 @@ Counterpart of ``repro/models/transformer.py``. Layers are an
 matrices keep the JAX layout (in, out), so ``x @ w`` is the JAX einsum and
 the converter only splits and renames. Single device: no sharding hints.
 
-``attn_impl`` picks the attention at all three call sites (forward,
-prefill, decode): ``"flash"`` (default) is the hand-written CUDA kernel
-through ``kernels.ops.flash_attention``; ``"ref"`` and ``"chunked"`` are the
-plain torch versions of ``models.common``, with forward keeping the JAX
-package's banded dispatch for sliding windows.
+``attn_impl`` picks the attention at every call site (forward, the
+training path, prefill, decode): ``"flash"`` (default) is the hand-written
+CUDA kernel through ``kernels.ops.flash_attention``; ``"ref"`` and
+``"chunked"`` are the plain torch versions of ``models.common``, with the
+full-sequence paths keeping the JAX package's banded dispatch for sliding
+windows (``"chunked"`` there is exactly JAX ``causal_attention``).
+
+Training: ``loss`` runs embed -> ``backbone`` (each layer under
+``torch.utils.checkpoint`` with ``remat``, as JAX's scan runs it under
+``jax.checkpoint``) -> ``unembed`` -> ``softmax_xent`` with gradients on;
+the kernels carry them through ``kernels.autograd``. ``forward``,
+``prefill`` and ``decode_step`` serve under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -44,8 +52,7 @@ class _Params(nn.Module):
     def add(self, name: str, shape: Tuple[int, ...], dtype: torch.dtype,
             init: str, device: torch.device) -> None:
         self.register_parameter(name, nn.Parameter(
-            torch.empty(shape, dtype=dtype, device=device),
-            requires_grad=False))
+            torch.empty(shape, dtype=dtype, device=device)))
         self.inits[name] = init
 
 
@@ -149,15 +156,15 @@ def attn_out(p: Attention, o: torch.Tensor) -> torch.Tensor:
 def causal_attention(cfg: ArchConfig, q, k, v, positions: torch.Tensor,
                      attn_impl: str = "flash") -> torch.Tensor:
     """Causal self-attention. The kernel takes the window itself; the plain
-    implementations keep the JAX dispatch: banded O(S*w) for sliding
-    windows, else ``attn_impl``."""
-    S = q.shape[1]
+    implementations go through ``cm.attention_plain``, the JAX dispatch
+    (banded O(S*w) for sliding windows, else ``attn_impl``)."""
     w = cfg.sliding_window
-    if attn_impl != "flash" and w and S % w == 0 and S >= 2 * w:
-        return cm.attention_banded(q, k, v, window=w, qpos=positions,
-                                   kpos=positions)
-    return cm.make_attention(attn_impl)(q, k, v, causal=True, window=w,
-                                        qpos=positions, kpos=positions)
+    if attn_impl == "flash":
+        return cm.make_attention("flash")(q, k, v, causal=True, window=w,
+                                          qpos=positions, kpos=positions,
+                                          self_attention=True)
+    return cm.attention_plain(q, k, v, window=w, qpos=positions,
+                              kpos=positions, impl=attn_impl)
 
 
 def decode_attention_raw(cfg: ArchConfig, p: Attention, x: torch.Tensor,
@@ -190,6 +197,21 @@ def mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:  # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
     return h @ p.wo
+
+
+def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked mean cross entropy in f32, as JAX ``softmax_xent``: the max
+    is detached (``stop_gradient``), lse = log sum exp(logits - max) + max,
+    the true logit by index (the iota compare of JAX picks the same one).
+    Returns (loss, denominator = max(sum mask, 1))."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    true = logits.gather(-1, targets.long()[..., None])[..., 0]
+    nll = (lse - true) * mask
+    denom = mask.sum().clamp_min(1.0)
+    return nll.sum() / denom, denom
 
 
 def ring_layout(ks: torch.Tensor, vs: torch.Tensor, S: int,
@@ -244,8 +266,7 @@ class TransformerLM(nn.Module):
         self.attn_impl = attn_impl
         V = cfg.padded_vocab
         self.embed = nn.Parameter(torch.empty((V, cfg.d_model),
-                                              dtype=cfg.tdtype, device=dev),
-                                  requires_grad=False)
+                                              dtype=cfg.tdtype, device=dev))
         self.layers = nn.ModuleList(self.make_block(dev)
                                     for _ in range(cfg.n_layers))
         self.final_norm = Norm(cfg, dev)
@@ -253,8 +274,7 @@ class TransformerLM(nn.Module):
             self.lm_head = None
         else:
             self.lm_head = nn.Parameter(
-                torch.empty((cfg.d_model, V), dtype=cfg.tdtype, device=dev),
-                requires_grad=False)
+                torch.empty((cfg.d_model, V), dtype=cfg.tdtype, device=dev))
 
     def make_block(self, device: torch.device) -> nn.Module:
         """One layer's parameter modules; subclasses return their own.
@@ -294,18 +314,55 @@ class TransformerLM(nn.Module):
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = x @ head
         if cfg.padded_vocab != cfg.vocab:  # mask the padding tail
-            logits[..., cfg.vocab:] = -1e9
+            if logits.requires_grad:       # training: out of place
+                pad = torch.arange(logits.shape[-1],
+                                   device=logits.device) >= cfg.vocab
+                logits = logits.masked_fill(pad, -1e9)
+            else:
+                logits[..., cfg.vocab:] = -1e9
         return logits
+
+    def backbone(self, x: torch.Tensor, positions: torch.Tensor, *,
+                 remat: bool = True) -> torch.Tensor:
+        """Every layer in turn. With ``remat`` (and grad mode on) each layer
+        body runs under ``torch.utils.checkpoint``: only its input is kept
+        and the body runs again in the backward, as JAX's
+        ``jax.checkpoint(nothing_saveable)`` does."""
+        remat = remat and torch.is_grad_enabled()
+        for p in self.layers:
+            if remat:
+                x = checkpoint(self.layer_body, p, x, positions,
+                               use_reentrant=False)
+            else:
+                x = self.layer_body(p, x, positions)
+        return x
+
+    def logits(self, tokens: torch.Tensor, *,
+               remat: bool = True) -> torch.Tensor:
+        """(B, S) tokens -> (B, S, padded vocab) logits, with gradients
+        when grad mode is on."""
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=tokens.device)
+        x = self.backbone(self.embed_tokens(tokens), positions, remat=remat)
+        return self.unembed(x)
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return self.logits(batch["tokens"], remat=False)
+
+    def loss(self, batch: Dict[str, torch.Tensor], *, remat: bool = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Next-token cross entropy, as JAX ``TransformerLM.loss``: targets
+        are the tokens rolled by -1, the last position masked. Returns
+        (loss, {"loss", "tokens"})."""
         tokens = batch["tokens"]
-        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                 device=tokens.device)
-        x = self.embed_tokens(tokens)
-        for p in self.layers:
-            x = self.layer_body(p, x, positions)
-        return self.unembed(x)
+        logits = self.logits(tokens, remat=remat)
+        targets = torch.roll(tokens, -1, dims=1)
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+        mask[:, -1] = 0.0
+        loss, denom = softmax_xent(logits, targets, mask)
+        return loss, {"loss": loss, "tokens": denom}
 
     # ------------------------------------------------------------- decode --
     @torch.no_grad()

@@ -1,4 +1,12 @@
-"""Serving steps (the training step arrives with the training slice)."""
-from repro_torch.train.step import make_prefill_step, make_serve_step
+"""Training substrate: AdamW, the microbatched train step with remat,
+int8 error-feedback gradient compression and checkpointing; and the
+serving steps."""
+from repro_torch.train.optimizer import (OptConfig, adamw_init, adamw_update,
+                                         lr_schedule)
+from repro_torch.train.step import (TrainConfig, init_train_state,
+                                    make_prefill_step, make_serve_step,
+                                    make_train_step)
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+__all__ = ["OptConfig", "adamw_init", "adamw_update", "lr_schedule",
+           "TrainConfig", "init_train_state", "make_prefill_step",
+           "make_serve_step", "make_train_step"]
