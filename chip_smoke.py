@@ -6,24 +6,30 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each failing the run with a non-zero exit:
   1. card    - CUDA present; the card's name and power limit (nvidia-smi)
   2. build   - compile every CUDA source of the port with nvcc, in parallel
+  mapreduce  - the MapReduce data plane (the paper's FP measurement): the
+               five jobs on the card against the CPU on a 2^20-token shard
+               of each corpus kind (equal keys and counts, bit-equal FP),
+               then 4 shards of one 128 MiB HDFS block per kind: FP mean
+               and std, tokens/s, the paper's observations
   3. kernel  - flash_attention (each case on the kernel the wrapper
                chooses, tc / split / simt; split at several n_split; the
                simt kernel also at the bf16 serving shapes) and gla_scan
                (bf16 cases on tc and on simt, f32 cases on simt) against
-               their plain versions on
-               the card, at the serving and training shapes and at edge
-               cases
-  4. wiring  - qwen3-4b, rwkv6-7b and hymba-1.5b at full width, 2 layers,
-               f32: prefill + one decode step with the kernels vs with the
-               plain versions (attn_impl="ref", gla_impl="chunked"); and
-               rwkv6-7b and hymba-1.5b in bf16, gla_impl="kernel" (the tc
-               kernel) vs "chunked", beside two control readings: the
+               their plain versions on the card, at the serving and
+               training shapes of every family and at edge cases
+  4. wiring  - qwen3-4b, rwkv6-7b, hymba-1.5b, dbrx-132b, internvl2-26b
+               and whisper-medium at full width, 1-2 layers, f32: prefill
+               + one decode step with the kernels vs with the plain
+               versions (attn_impl="ref"/"chunked", gla_impl="chunked");
+               and rwkv6-7b and hymba-1.5b in bf16, gla_impl="kernel" (the
+               tc kernel) vs "chunked", beside two control readings: the
                plain model with a GLA scan broken on purpose
   5. serve   - the main paths: JoSS routing -> prefill -> greedy decode of
-               qwen3-4b, rwkv6-7b and hymba-1.5b at full width and depth in
-               bf16; counts each kernel's launches in each run, and the
-               launches by variant (flash: prefill tc, decode split; GLA:
-               tc)
+               qwen3-4b, rwkv6-7b, hymba-1.5b, internvl2-26b and
+               whisper-medium at full width and depth, dbrx-132b (8 of 40
+               layers) and arctic-480b (2 of 35) at full width, bf16;
+               counts each kernel's launches in each run, and the launches
+               by variant (flash: prefill tc, decode split; GLA: tc)
   6. times   - each kernel, its plain version and (for attention) SDPA as
                a yardstick, at the serving shapes, beside the least time
                the card could take: eager calls timed by CUDA events (ms)
@@ -31,21 +37,22 @@ Phases, each failing the run with a non-zero exit:
                the chosen kernel and the simt kernel (the first design) in
                turns in the same run
   7. grad    - gradients through the kernels' autograd Functions (kernel
-               forward, plain backward) against autograd of the plain
-               functions, at the serving and training shapes and a
-               ragged one; the raw
-               wrappers must refuse grad-requiring inputs
+               forward, the caller's plain backward) against autograd of
+               the plain functions, at the serving and training shapes and
+               a ragged one; the raw wrappers must refuse grad-requiring
+               inputs
   8. train_wiring - qwen3-4b and hymba-1.5b at full width, 2 layers, f32:
                loss, every gradient and three make_train_step steps with
                the kernels vs the all-plain model (attn_impl="chunked",
                gla_impl="chunked") from the same weights, beside a
                control with attention's q/k/v gradients zeroed
-  9. train   - the training main paths in bf16: qwen3-4b and hymba-1.5b
-               at full width and depth, rwkv6-7b at 8 layers, each on
-               batches of the JoSS policy-B pipeline and then one batch
-               repeated (its loss must fall); launches counted per run, one
-               step profiled; then qwen3-4b at 4 layers: n_micro 2 vs 1,
-               int8 compression, a checkpoint round trip
+  9. train   - the training main paths in bf16: qwen3-4b, hymba-1.5b and
+               whisper-medium at full width and depth, rwkv6-7b at 8
+               layers, each on batches of the JoSS policy-B pipeline (and
+               whisper's seeded audio frames) and then one batch repeated
+               (its loss must fall); launches counted per run, one step
+               profiled; then qwen3-4b at 4 layers: n_micro 2 vs 1, int8
+               compression, a checkpoint round trip
 Each phase prints JSON lines; the run ends with the nvidia-smi line, the
 kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
@@ -61,12 +68,14 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd import DeviceType
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import mapreduce as mr  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.topology import VirtualCluster  # noqa: E402
 from repro_torch.data import JossDataPipeline, TokenStore  # noqa: E402
@@ -75,7 +84,8 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gla_scan as gs  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.autograd import BACKWARD_SPANS  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import (build_model, prefix_len,  # noqa: E402
+                                side_inputs)
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models.recurrence import gla_chunked  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
@@ -95,7 +105,18 @@ GLA_TOL = {torch.float32: (7e-4, 2e-3), torch.bfloat16: (0.15, 5e-2)}
 # hymba's prompt is twice its 1024-token window, so the window, the ring
 # wrap and the unsorted ring kpos are all on its path
 SERVE = {"qwen3-4b": (8, 512, 32), "rwkv6-7b": (8, 512, 32),
-         "hymba-1.5b": (8, 2048, 32)}
+         "hymba-1.5b": (8, 2048, 32), "dbrx-132b": (8, 512, 32),
+         "arctic-480b": (8, 512, 32), "internvl2-26b": (8, 512, 32),
+         "whisper-medium": (8, 224, 32)}
+# depth cut only where one card forces it, bf16: 8 of dbrx-132b's 40
+# layers (6.5 GB each) and 2 of arctic-480b's 35 (27.3 GB each) fill ~55
+# GB; internvl2-26b (~40 GB, its vision frontend a stub) and
+# whisper-medium run at full depth
+SERVE_LAYERS = {"dbrx-132b": 8, "arctic-480b": 2}
+# whisper-medium: 30 s of audio, 3000 log-mel frames (1500 encoder
+# positions), a prompt of half its 448-token text context; internvl2-26b's
+# 256 patch tokens come ahead of its 512-token prompt
+SERVE_FRAMES = {"whisper-medium": 3000}
 # logits of the f32 wiring checks: the kernels and the plain versions
 # differ only by f32 summation order (TF32 off), so 1e-3 on O(1) logits is
 # ample
@@ -144,6 +165,148 @@ def within(out, ref, atol, rtol):
     diff = (out.float() - ref.float()).abs()
     excess = (diff - atol - rtol * ref.float().abs()).max().item()
     return diff.max().item(), excess <= 0
+
+
+def serve_cfg(arch):
+    """The serving run's config: the arch's, cut to SERVE_LAYERS."""
+    cfg = get_config(arch)
+    return cfg.scaled(n_layers=SERVE_LAYERS[arch]) if arch in SERVE_LAYERS \
+        else cfg
+
+
+def attn_calls(cfg):
+    """Attention calls (a forward over a sequence, a decode step): one a
+    layer, and for encdec one an encoder layer and two a decoder layer
+    (self- and cross-attention); none for rwkv6."""
+    if cfg.family == "ssm":
+        return 0, 0
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers, 2 * cfg.n_layers
+    return cfg.n_layers, cfg.n_layers
+
+
+def with_side(cfg, batch, seed, n_frames=None):
+    """``batch`` plus the family's side inputs (encdec frames, vlm
+    patches), drawn by ``models.side_inputs``, on the card in cfg's
+    dtype."""
+    B = batch["tokens"].shape[0]
+    for name, x in side_inputs(cfg, B, seed=seed, n_frames=n_frames).items():
+        batch[name] = torch.as_tensor(x, device=DEV).to(cfg.tdtype)
+    return batch
+
+
+# ------------------------------------------------------------ mapreduce --
+# the MapReduce data plane, the paper's FP measurement: the card against
+# the CPU on one shard of 2^20 tokens per corpus kind (keys, counts and
+# n_unique equal, FP bit-equal), then the real size: per kind, shards of
+# one 128 MiB HDFS block each (Hadoop 2's default dfs.blocksize) at the
+# kind's mean word length, every int32 byte sum below 2^31
+MR_EQ_TOKENS = 1 << 20
+MR_SHARDS, MR_BLOCK_BYTES = 4, 128 << 20
+MR_KINDS = ("web", "non-web")
+
+
+def host_runs(fn, runs=3):
+    """Host seconds of each of ``runs`` calls of ``fn``, whose result is on
+    the host (so each call ends when the card is done)."""
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def block_shard(kind, seed, mean_len):
+    """A shard of ``kind`` whose word bytes fill one block: the longest
+    prefix of a seeded corpus within MR_BLOCK_BYTES (a corpus's prefix does
+    not depend on how many tokens were drawn)."""
+    n = int(1.2 * MR_BLOCK_BYTES / mean_len)
+    tok, lng = mr.corpus(kind, n, seed=seed)
+    cut = int(np.searchsorted(np.cumsum(lng, dtype=np.int64), MR_BLOCK_BYTES,
+                              side="right"))
+    check(cut < n, f"a {kind} corpus of {n} tokens does not fill a block")
+    return tok[:cut], lng[:cut]
+
+
+def phase_mapreduce():
+    mean_len = {}
+    for kind in MR_KINDS:
+        tok, lng = mr.corpus(kind, MR_EQ_TOKENS, seed=2000)
+        mean_len[kind] = float(lng.mean())
+        host = (torch.from_numpy(tok), torch.from_numpy(lng))
+        card = tuple(t.to(DEV) for t in host)
+        for name, spec in mr.JOBS.items():
+            (kc, vc, nc), (kg, vg, ng) = (mr.local_mapreduce(spec, *x)
+                                          for x in (host, card))
+            fc, fg = (mr.measure_fp(spec, t[None], l[None])
+                      for t, l in (host, card))
+            equal = (int(nc) == int(ng) and torch.equal(kc, kg.cpu())
+                     and torch.equal(vc, vg.cpu()))
+            bits = bool((fc.view("int32") == fg.view("int32")).all())
+            emit(phase="mapreduce", check="cuda_vs_cpu", kind=kind, job=name,
+                 tokens=MR_EQ_TOKENS, n_unique=int(ng),
+                 keys_counts_equal=equal, fp=float(fg[0]), fp_bit_equal=bits)
+            check(equal and bits, f"mapreduce {name} on {kind}: the card "
+                                  f"and the CPU disagree")
+    fp = {}
+    for kind in MR_KINDS:
+        t0 = time.perf_counter()
+        shards = [block_shard(kind, 3000 + s, mean_len[kind])
+                  for s in range(MR_SHARDS)]
+        corpus_s = time.perf_counter() - t0
+        # shards of one block differ in length by a few words: a batch of
+        # shards is padded to the longest with token -1, which every job
+        # ignores and FP does not count
+        n = max(len(t) for t, _ in shards)
+        st = torch.full((MR_SHARDS, n), -1, dtype=torch.int32)
+        sl = torch.zeros((MR_SHARDS, n), dtype=torch.int32)
+        for i, (t, l) in enumerate(shards):
+            st[i, :len(t)] = torch.from_numpy(t)
+            sl[i, :len(l)] = torch.from_numpy(l)
+        st, sl = st.to(DEV), sl.to(DEV)
+        block = [int(l.sum()) for _, l in shards]
+        tokens = [len(t) for t, _ in shards]
+        del shards
+        for name, spec in mr.JOBS.items():
+            fps = mr.measure_fp(spec, st, sl)          # returns on the host
+            uniq = [int(mr.local_mapreduce(spec, t, l)[2])
+                    for t, l in zip(st, sl)]
+            # then timed, warm: the first calls also grow the allocator's
+            # pool to this job's sizes
+            fp_s = host_runs(lambda: mr.measure_fp(spec, st, sl))
+            mr_s = host_runs(lambda: [int(mr.local_mapreduce(spec, t, l)[2])
+                                      for t, l in zip(st, sl)])
+            fp[(name, kind)] = (float(np.mean(fps)), float(np.std(fps)))
+            emit(phase="mapreduce", check="real_size", kind=kind, job=name,
+                 shards=MR_SHARDS, tokens_per_shard=tokens,
+                 block_bytes=block,
+                 corpus_host_s=corpus_s, fp=fps.tolist(),
+                 fp_mean=fp[(name, kind)][0], fp_std=fp[(name, kind)][1],
+                 max_byte_sum=int(float(fps.max()) * max(block)),
+                 fp_s_runs=fp_s,
+                 fp_tokens_per_s=sum(tokens) / statistics.median(fp_s),
+                 mapreduce_s_runs=mr_s,
+                 mapreduce_tokens_per_s=(sum(tokens)
+                                         / statistics.median(mr_s)),
+                 n_unique=uniq)
+            check(bool(np.isfinite(fps).all())
+                  and float(fps.max()) * max(block) < 2 ** 31,
+                  f"mapreduce {name} on {kind}: FP or byte sums out of "
+                  f"range")
+        del st, sl
+        torch.cuda.empty_cache()
+    # benchmarks/bench_filtering.py's paper observations, at the real size
+    obs = {"grep_web_below_0.5": fp[("Grep", "web")][0] < 0.5,
+           "permu_non_web_near_3": abs(fp[("Permu", "non-web")][0] - 3.0)
+           < 0.3,
+           "std_under_20pct_but_grep": all(
+               sd < 0.2 * max(mean, 1e-9) for (job, _), (mean, sd)
+               in fp.items() if job != "Grep")}
+    emit(phase="mapreduce", check="paper_observations", **obs)
+    check(all(obs.values()), f"the paper's FP observations fail at the "
+                             f"128 MiB block size: {obs}")
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -219,6 +382,53 @@ def flash_cases():
          bf16, None),
         ("tc_d128", 1, 200, 300, 10, 2, 128, True, 100, ar(200, 251),
          ring_kpos(300, 450), bf16, None),
+    ]
+    # the moe, vlm and encdec serving shapes: decode at H/G 6 (dbrx,
+    # internvl2: the split kernel's 8-row block with 2 empty rows), 7
+    # (arctic, 1 empty row) and 1 (whisper: the 4-row block with 3 empty
+    # rows), prefill at H/G 6 and 7; whisper's encoder (non-causal bf16 at
+    # D 64 on tensor cores, a ragged last tile at 1500) and its
+    # cross-attention at prefill and decode (non-causal, qpos = kpos = 0)
+    _, VP, VGEN = SERVE["internvl2-26b"]
+    VS = get_config("internvl2-26b").vis_tokens + VP
+    _, MP, MGEN = SERVE["dbrx-132b"]
+    _, WP, WGEN = SERVE["whisper-medium"]
+    WE = SERVE_FRAMES["whisper-medium"] // 2
+
+    def filled(C, last):                    # a C-slot cache up to last
+        return torch.where(ar(C) <= last, ar(C), -1).to(torch.int32)
+
+    def zeros(n):                           # cross-attention positions
+        return torch.zeros(n, dtype=torch.int32, device=DEV)
+
+    vlast, mlast, wlast = VS + VGEN - 2, MP + MGEN - 2, WP + WGEN - 2
+    cases += [
+        ("internvl2_prefill", 8, VS, VS, 48, 8, 128, True, 0, ar(VS),
+         ar(VS), bf16, None),
+        ("internvl2_decode", 8, 1, VS + VGEN, 48, 8, 128, True, 0,
+         ar(1, vlast), filled(VS + VGEN, vlast), bf16, None),
+        ("internvl2_decode", 2, 1, VS + VGEN, 48, 8, 128, True, 0,
+         ar(1, vlast), filled(VS + VGEN, vlast), f32, None),
+        ("dbrx_prefill", 8, MP, MP, 48, 8, 128, True, 0, ar(MP), ar(MP),
+         bf16, None),
+        ("dbrx_decode", 8, 1, MP + MGEN, 48, 8, 128, True, 0, ar(1, mlast),
+         filled(MP + MGEN, mlast), bf16, None),
+        ("arctic_prefill", 8, MP, MP, 56, 8, 128, True, 0, ar(MP), ar(MP),
+         bf16, None),
+        ("arctic_decode", 8, 1, MP + MGEN, 56, 8, 128, True, 0,
+         ar(1, mlast), filled(MP + MGEN, mlast), bf16, None),
+        ("whisper_encoder", 8, WE, WE, 16, 16, 64, False, 0, ar(WE), ar(WE),
+         bf16, None),
+        ("whisper_encoder", 2, WE, WE, 16, 16, 64, False, 0, ar(WE), ar(WE),
+         f32, None),
+        ("whisper_prefill", 8, WP, WP, 16, 16, 64, True, 0, ar(WP), ar(WP),
+         bf16, None),
+        ("whisper_cross_prefill", 8, WP, WE, 16, 16, 64, False, 0,
+         zeros(WP), zeros(WE), bf16, None),
+        ("whisper_decode", 8, 1, WP + WGEN, 16, 16, 64, True, 0,
+         ar(1, wlast), filled(WP + WGEN, wlast), bf16, None),
+        ("whisper_cross_decode", 8, 1, WE, 16, 16, 64, False, 0, zeros(1),
+         zeros(WE), bf16, None),
     ]
     # the simt kernel (the first design) at the bf16 serving shapes, as
     # phase 6 times it
@@ -366,7 +576,8 @@ def phase_kernel():
 
 # ---------------------------------------------------------------- phase 4 --
 WIRING = [
-    # (arch, dtype, B, S, kernel build kwargs, plain build kwargs)
+    # (arch, dtype, B, S, kernel build kwargs, plain build kwargs); 2
+    # layers unless WIRING_CUT says otherwise
     ("qwen3-4b", "float32", 2, 128, dict(attn_impl="flash"),
      dict(attn_impl="ref")),
     ("rwkv6-7b", "float32", 2, 128, dict(gla_impl="kernel"),
@@ -383,7 +594,21 @@ WIRING = [
     ("hymba-1.5b", "bfloat16", 2, 2048,
      dict(attn_impl="flash", gla_impl="kernel"),
      dict(attn_impl="flash", gla_impl="chunked")),
+    # the moe, vlm and encdec families, f32, the kernel against JAX's
+    # attention_chunked (the call sites' own plain function); whisper at
+    # its serving frames (1500 encoder positions)
+    ("dbrx-132b", "float32", 2, 128, dict(attn_impl="flash"),
+     dict(attn_impl="chunked")),
+    ("internvl2-26b", "float32", 2, 128, dict(attn_impl="flash"),
+     dict(attn_impl="chunked")),
+    ("whisper-medium", "float32", 2, 128, dict(attn_impl="flash"),
+     dict(attn_impl="chunked")),
 ]
+# one f32 layer of dbrx-132b is 13 GB and its embeddings 4.9 GB: two
+# copies of one layer are ~36 GB. arctic-480b has no line: one f32 layer
+# is 55 GB. whisper-medium: 2 encoder layers beside its 2 decoder layers
+WIRING_CUT = {"dbrx-132b": dict(n_layers=1),
+              "whisper-medium": dict(encoder_layers=2)}
 
 
 def gla_state_dropped(r, k, v, logw, u=None, *, initial_state=None):
@@ -419,10 +644,13 @@ CONTROLS = {"state_dropped": gla_state_dropped,
             "state_bf16": gla_state_bf16}
 
 
-def run_model(model, toks, S, vocab):
-    """(prefill logits, decode-step logits) as f32, vocab columns only."""
-    lg, cache = model.prefill({"tokens": toks[:, :S]}, cache_len=S + 4)
-    ld, _ = model.decode_step(cache, toks[:, S:S + 1], S)
+def run_model(model, toks, S, vocab, side=None):
+    """(prefill logits, decode-step logits) as f32, vocab columns only;
+    ``side`` holds the family's frames or patches."""
+    off = prefix_len(model.cfg)
+    lg, cache = model.prefill(dict(side or {}, tokens=toks[:, :S]),
+                              cache_len=off + S + 4)
+    ld, _ = model.decode_step(cache, toks[:, S:S + 1], off + S)
     return lg[..., :vocab].float(), ld[..., :vocab].float()
 
 
@@ -433,7 +661,8 @@ def rel_err(out, ref):
 
 def phase_wiring():
     for arch, dtype, B, S, kern_kw, plain_kw in WIRING:
-        cfg = get_config(arch).scaled(n_layers=2, dtype=dtype)
+        cfg = get_config(arch).scaled(**dict(dict(n_layers=2, dtype=dtype),
+                                             **WIRING_CUT.get(arch, {})))
         kern = build_model(cfg, device=DEV, **kern_kw)
         kern.init_params(torch.Generator(device=DEV).manual_seed(2))
         plain = build_model(cfg, device=DEV, **plain_kw)
@@ -441,7 +670,10 @@ def phase_wiring():
         toks = torch.randint(0, cfg.vocab, (B, S + 1), device=DEV,
                              generator=torch.Generator(device=DEV)
                              .manual_seed(3))
-        (kp, kd), (pp, pd) = (run_model(m, toks, S, cfg.vocab)
+        side = with_side(cfg, {"tokens": toks}, 3,
+                         SERVE_FRAMES.get(arch))
+        del side["tokens"]
+        (kp, kd), (pp, pd) = (run_model(m, toks, S, cfg.vocab, side)
                               for m in (kern, plain))
         controls = {}
         if dtype == "bfloat16":
@@ -457,7 +689,9 @@ def phase_wiring():
         limit = (dict(atol=WIRING_ATOL) if dtype == "float32"
                  else dict(rtol=WIRING_BF16_RTOL))
         emit(phase="wiring", arch=cfg.name, n_layers=cfg.n_layers,
+             encoder_layers=cfg.encoder_layers or None,
              d_model=cfg.d_model, dtype=cfg.dtype, batch=B, prompt_len=S,
+             side_inputs={k: list(v.shape) for k, v in side.items()},
              kernel=kern_kw, plain=plain_kw, prefill_max_abs_err=err_pf,
              decode_max_abs_err=err_dec, prefill_rel_err=rel_pf,
              decode_rel_err=rel_dec, control_rel_err=controls, **limit)
@@ -482,16 +716,17 @@ def phase_serve():
     {kernel: {variant: launches}}}."""
     launches, variants = {}, {}
     for arch, (N, P, GEN) in SERVE.items():
-        cfg = get_config(arch)
-        attn = cfg.family in ("dense", "hybrid")
+        cfg = serve_cfg(arch)
         gla = cfg.family in ("ssm", "hybrid")
-        # attention: every layer at prefill (tc) and at each of the G-1
-        # decode steps (split); GLA scan: every layer at prefill (decode
-        # runs gla_step)
-        want = {"flash_attention": cfg.n_layers * GEN if attn else 0,
+        # attention: each call of the prefill (tc: a layer; encdec's
+        # encoder layers and its decoder's self- and cross-attention) and
+        # of each of the G-1 decode steps (split); GLA scan: every layer
+        # at prefill (decode runs gla_step)
+        at_prefill, a_step = attn_calls(cfg)
+        want = {"flash_attention": at_prefill + a_step * (GEN - 1),
                 "gla_scan": cfg.n_layers if gla else 0}
-        want_variants = {"simt": 0, "tc": cfg.n_layers if attn else 0,
-                         "split": cfg.n_layers * (GEN - 1) if attn else 0}
+        want_variants = {"simt": 0, "tc": at_prefill,
+                         "split": a_step * (GEN - 1)}
         want_gla = {"tc": cfg.n_layers if gla else 0, "simt": 0}
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -499,7 +734,8 @@ def phase_serve():
             fn.launches = 0
             for name in fn.launches_by_variant:
                 fn.launches_by_variant[name] = 0
-        res = serve(cfg, N, P, GEN, device=DEV, seed=0)
+        res = serve(cfg, N, P, GEN, device=DEV, seed=0,
+                    n_frames=SERVE_FRAMES.get(arch))
         got = {"flash_attention": fa.flash_attention.launches,
                "gla_scan": gs.gla_scan.launches}
         got_variants = dict(fa.flash_attention.launches_by_variant)
@@ -507,8 +743,11 @@ def phase_serve():
         finite = bool(torch.isfinite(res.logits).all())
         tok_ok = bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all())
         emit(phase="serve", arch=cfg.name, n_layers=cfg.n_layers,
+             full_depth=arch not in SERVE_LAYERS,
+             encoder_layers=cfg.encoder_layers or None,
              d_model=cfg.d_model, dtype=cfg.dtype, requests=N,
-             prompt_len=P, gen_len=GEN,
+             prompt_len=P, gen_len=GEN, prefix=prefix_len(cfg) or None,
+             frames=SERVE_FRAMES.get(arch),
              routes=[[d.rid, d.pod, d.policy, d.cache_hit]
                      for d in res.decisions],
              cache_hit_rate=res.cache_hit_rate,
@@ -602,7 +841,7 @@ def least_ms(nbytes, flops):
 def flash_work(B, H, G, D, qpos, kpos, causal, window, itemsize):
     """Bytes of q, o and the valid keys' k/v, and 4*D flops for each valid
     (q, k) pair, on these inputs."""
-    ok = kpos[None, :] >= 0
+    ok = (kpos[None, :] >= 0).expand(qpos.shape[0], -1)   # every (q, k)
     if causal:
         ok = ok & (kpos[None, :] <= qpos[:, None])
     if window:
@@ -633,28 +872,39 @@ def phase_times():
     gen = torch.Generator(device=DEV).manual_seed(4)
     dt = torch.bfloat16
     per = {}
-    # flash_attention: name -> (arch, Sq, Sk, window, qpos, kpos, calls per
-    # serving run, buffers, iters)
+    # flash_attention: name -> (arch, Sq, Sk, window, causal, qpos, kpos,
+    # calls per serving run, buffers, iters)
     qcfg, hcfg = get_config("qwen3-4b"), get_config("hymba-1.5b")
+    wcfg, vcfg = get_config("whisper-medium"), get_config("internvl2-26b")
     _, P, GEN = SERVE["qwen3-4b"]
     _, HP, HGEN = SERVE["hymba-1.5b"]
+    VS = vcfg.vis_tokens + SERVE["internvl2-26b"][1]
+    WE = SERVE_FRAMES["whisper-medium"] // 2
     C = P + GEN
     last, hlast = P + GEN - 2, HP + HGEN - 2    # the last decode steps
     flash = {
-        "qwen3_prefill": (qcfg, P, P, 0, ar(P), ar(P), qcfg.n_layers, 2, 50),
+        "qwen3_prefill": (qcfg, P, P, 0, True, ar(P), ar(P), qcfg.n_layers,
+                          2, 50),
         # several K/V buffers in turn, as the layers' caches are: the 18 MB
         # of one would otherwise stay in the 50 MB L2 between launches
-        "qwen3_decode": (qcfg, 1, C, 0, ar(1, last),
+        "qwen3_decode": (qcfg, 1, C, 0, True, ar(1, last),
                          torch.where(ar(C) <= last, ar(C), -1)
                          .to(torch.int32), qcfg.n_layers * (GEN - 1), 8,
                          400),
-        "hymba_prefill": (hcfg, HP, HP, 1024, ar(HP), ar(HP),
+        "hymba_prefill": (hcfg, HP, HP, 1024, True, ar(HP), ar(HP),
                           hcfg.n_layers, 2, 20),
-        "hymba_decode": (hcfg, 1, 1024, 1024, ar(1, hlast),
+        "hymba_decode": (hcfg, 1, 1024, 1024, True, ar(1, hlast),
                          ring_kpos(1024, hlast),
                          hcfg.n_layers * (HGEN - 1), 8, 400),
+        # the shapes this slice launches most work at: whisper-medium's
+        # encoder (non-causal, 1500 positions, H = G = 16, D 64) and
+        # internvl2-26b's prefill (256 patches + 512 tokens, H 48, G 8)
+        "whisper_encoder": (wcfg, WE, WE, 0, False, ar(WE), ar(WE),
+                            wcfg.encoder_layers, 2, 30),
+        "internvl2_prefill": (vcfg, VS, VS, 0, True, ar(VS), ar(VS),
+                              vcfg.n_layers, 2, 30),
     }
-    for name, (cfg, Sq, Sk, window, qpos, kpos, n_calls, nbuf,
+    for name, (cfg, Sq, Sk, window, causal, qpos, kpos, n_calls, nbuf,
                iters) in flash.items():
         N = SERVE[cfg.name][0]
         H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
@@ -666,8 +916,9 @@ def phase_times():
         mask = (kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
         if window:
             mask = mask & (kpos[None, :] > qpos[:, None] - window)
-        kw = dict(causal=True, window=window, qpos=qpos, kpos=kpos)
-        sdpa_kw = (dict(is_causal=True) if Sq == Sk and not window
+        kw = dict(causal=causal, window=window, qpos=qpos, kpos=kpos)
+        sdpa_kw = (dict() if not causal else
+                   dict(is_causal=True) if Sq == Sk and not window
                    else dict(attn_mask=mask))
         variant = fa.choose_variant(dt, Sq)
         cyc = {key: itertools.cycle(bufs) for key in ("", "simt", "plain")}
@@ -701,10 +952,12 @@ def phase_times():
         plain_ms, _ = time_ms(
             lambda: fa.flash_attention_ref(*next(cyc["plain"]), **kw),
             max(10, iters // 10))
-        nbytes, flops = flash_work(N, H, G, D, qpos, kpos, True, window, 2)
+        nbytes, flops = flash_work(N, H, G, D, qpos, kpos, causal, window,
+                                   2)
         b_ms, b_by = least_ms(nbytes, flops)
         per[("flash_attention", name)] = dict(
-            shape=[N, Sq, Sk, H, G, D], window=window, dtype="bfloat16",
+            shape=[N, Sq, Sk, H, G, D], window=window, causal=causal,
+            dtype="bfloat16",
             variant=variant,
             n_split=(fa.decode_splits(N, G, Sk, n_sm())
                      if variant == "split" else None),
@@ -778,15 +1031,20 @@ GRAD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 
 
 def grad_cases():
-    """flash: (name, B, S, H, G, D, window, dtype); gla: (name, B, T, H, K,
-    V, u, initial state, dtype). The serving shapes (bf16 at the serving
-    batch, f32 at B = 2), the training shapes of phase 9 (hymba's differ
-    from its serving one only in B) and a small ragged shape."""
+    """flash: (name, B, S, H, G, D, window, dtype[, causal, block_k]);
+    gla: (name, B, T, H, K, V, u, initial state, dtype). The serving
+    shapes (bf16 at the serving batch, f32 at B = 2), the training shapes
+    of phase 9 (hymba's differ from its serving one only in B) and a small
+    ragged shape. whisper-medium's training shapes pass its call sites'
+    block_k of 512: the encoder non-causal at 1500 positions, the decoder
+    causal at 448."""
     f32, bf16 = torch.float32, torch.bfloat16
     _, P, _ = SERVE["qwen3-4b"]
     _, HP, _ = SERVE["hymba-1.5b"]
     _, QB, QS = TRAIN["qwen3-4b"][:3]
     _, RB, RT = TRAIN["rwkv6-7b"][:3]
+    _, WB, WS = TRAIN["whisper-medium"][:3]
+    WE = TRAIN_FRAMES["whisper-medium"] // 2
     flash = [("qwen3_prefill", 8, P, 32, 8, 128, 0, bf16),
              ("qwen3_train", QB, QS, 32, 8, 128, 0, bf16),
              ("qwen3_prefill", 2, P, 32, 8, 128, 0, f32),
@@ -794,7 +1052,10 @@ def grad_cases():
              ("hymba_prefill", 8, HP, 25, 5, 64, 1024, bf16),
              ("hymba_prefill", 2, HP, 25, 5, 64, 1024, f32),
              ("ragged", 3, 77, 6, 3, 32, 0, f32),
-             ("ragged_window", 2, 150, 10, 2, 64, 40, bf16)]
+             ("ragged_window", 2, 150, 10, 2, 64, 40, bf16),
+             ("whisper_encoder", WB, WE, 16, 16, 64, 0, bf16, False, 512),
+             ("whisper_encoder", 2, WE, 16, 16, 64, 0, f32, False, 512),
+             ("whisper_decoder", WB, WS, 16, 16, 64, 0, bf16, True, 512)]
     gla = [("rwkv6_prefill", 8, P, 64, 64, 64, True, False, bf16),
            ("rwkv6_train", RB, RT, 64, 64, 64, True, False, bf16),
            ("rwkv6_prefill", 2, P, 64, 64, 64, True, False, f32),
@@ -851,13 +1112,14 @@ def phase_grad():
     check(all(raised.values()), f"a raw wrapper took grad-requiring inputs "
                                 f"and handed back a detached output: "
                                 f"{raised}")
-    for name, B, S, H, G, D, window, dt in flash_cases_:
+    for name, B, S, H, G, D, window, dt, *site in flash_cases_:
+        causal, block_k = site or (True, None)
         qkv = [rand(shape, dt, gen) for shape in
                ((B, S, H, D), (B, S, G, D), (B, S, G, D))]
         pos = ar(S)
         target = torch.randn((B, S, H, D), generator=gen, device=DEV)
-        kw = dict(causal=True, window=window, qpos=pos, kpos=pos,
-                  self_attention=True)
+        kw = dict(causal=causal, window=window, qpos=pos, kpos=pos,
+                  self_attention=True, block_k=block_k)
         g_fn = grads_of(lambda q, k, v: kops.flash_attention(q, k, v, **kw),
                         [t.clone().requires_grad_() for t in qkv], target)
         g_plain = grads_of(lambda q, k, v: cm.attention_plain(q, k, v, **kw),
@@ -867,6 +1129,7 @@ def phase_grad():
         grad_line("flash_attention", f"{name}/{str(dt).split('.')[-1]}", dt,
                   "qkv", g_fn, g_plain,
                   dict(shape=[B, S, S, H, G, D], window=window,
+                       causal=causal, block_k=block_k,
                        backward="banded" if banded else "chunked"))
         del qkv, g_fn, g_plain
     for name, B, T, H, K, V, use_u, init, dt in gla_cases_:
@@ -1021,7 +1284,11 @@ TRAIN = {
     "qwen3-4b": (None, 4, 1024, 5, 3, None),
     "hymba-1.5b": (None, 4, 2048, 5, 3, 4),
     "rwkv6-7b": (8, 4, 1024, 5, 3, None),
+    # full depth (24 + 24 layers), 30 s of audio a sequence and its whole
+    # 448-token text context
+    "whisper-medium": (None, 8, 448, 5, 3, None),
 }
+TRAIN_FRAMES = {"whisper-medium": 3000}
 TRAIN_OPT = OptConfig(lr=1e-3, warmup_steps=0, total_steps=1000)
 # the 4-layer qwen3-4b runs: n_micro 2 against 1 on one batch (loss and
 # grad norm: bf16 matmuls on half the rows, f32 accumulation against the
@@ -1079,7 +1346,6 @@ def run_train(arch):
     layers, B, S, pipe_steps, repeat_steps, prof_layers = TRAIN[arch]
     cfg = get_config(arch)
     cfg = cfg.scaled(n_layers=layers) if layers else cfg
-    attn = cfg.family in ("dense", "hybrid")
     gla = cfg.family in ("ssm", "hybrid")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1091,14 +1357,16 @@ def run_train(arch):
     store = TokenStore(VirtualCluster([4, 4]), n_shards=32, seqs_per_shard=8,
                        seq_len=S, vocab=cfg.vocab, seed=0)
     pipe = JossDataPipeline(store, global_batch=B, seed=1)
-    batches = [torch.as_tensor(b, device=DEV) for b in pipe.batches(
-        pipe_steps)]
+    # each pipeline batch with the family's side inputs (whisper's frames)
+    batches = [with_side(cfg, {"tokens": torch.as_tensor(b, device=DEV)},
+                         i, TRAIN_FRAMES.get(arch))
+               for i, b in enumerate(pipe.batches(pipe_steps))]
     batches += [batches[-1]] * repeat_steps
     n_steps = len(batches)
     reset_counts()
     losses, gnorms, secs = [], [], []
-    for toks in batches:
-        state, met, s = timed_step(step, state, {"tokens": toks})
+    for batch in batches:
+        state, met, s = timed_step(step, state, batch)
         losses.append(met["loss"].item())
         gnorms.append(met["grad_norm"].item())
         secs.append(s)
@@ -1108,9 +1376,9 @@ def run_train(arch):
                                         .launches_by_variant),
                 "gla_scan": dict(gs.gla_scan.launches_by_variant)}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    # each layer's kernel runs twice a step: the forward and the remat
-    # recompute in the backward (the backward itself is plain)
-    want = {"flash_attention": 2 * cfg.n_layers * n_steps if attn else 0,
+    # each attention call's kernel runs twice a step: the forward and the
+    # remat recompute in the backward (the backward itself is plain)
+    want = {"flash_attention": 2 * attn_calls(cfg)[0] * n_steps,
             "gla_scan": 2 * cfg.n_layers * n_steps if gla else 0}
     med = statistics.median(secs[1:])
     rep = pipe.locality_report()
@@ -1121,14 +1389,16 @@ def run_train(arch):
         state = init_train_state(model, torch.Generator(device=DEV)
                                  .manual_seed(8), tcfg)
         step = make_train_step(model, tcfg)
-        state, _ = step(state, {"tokens": batches[-1]})
+        state, _ = step(state, batches[-1])
     t0 = time.perf_counter()
-    state, prof = profile_step(step, state, {"tokens": batches[-1]})
+    state, prof = profile_step(step, state, batches[-1])
     prof["seconds"] = time.perf_counter() - t0
     prof["n_layers"] = prof_layers or cfg.n_layers
     emit(phase="train", arch=cfg.name, n_layers=cfg.n_layers,
+         encoder_layers=cfg.encoder_layers or None,
          full_depth=layers is None, d_model=cfg.d_model, dtype=cfg.dtype,
-         params=n_params, batch=B, seq_len=S, n_micro=1, steps=n_steps,
+         params=n_params, batch=B, seq_len=S,
+         frames=TRAIN_FRAMES.get(arch), n_micro=1, steps=n_steps,
          pipeline_steps=pipe_steps, repeated_steps=repeat_steps,
          s_per_step=secs, median_s_per_step=med,
          tokens_per_s=B * S / med, peak_mem_gb=peak, losses=losses,
@@ -1303,7 +1573,8 @@ def main() -> None:
          libraries=[p.name for p in libs], ptxas=ptxas)
 
     done = {}
-    runs = {"kernel": phase_kernel, "wiring": phase_wiring,
+    runs = {"mapreduce": phase_mapreduce, "kernel": phase_kernel,
+            "wiring": phase_wiring,
             "serve": phase_serve, "times": phase_times, "grad": phase_grad,
             "train_wiring": phase_train_wiring, "train": phase_train}
     for name, run in runs.items():
@@ -1320,15 +1591,24 @@ def main() -> None:
                           "count": torch.cuda.device_count()})
 
 
+# phase 3's cases at the bf16 serving shapes, whose errors the kernels line
+# reports
+SERVING_CASES = ("prefill", "decode", "hymba_prefill", "hymba_decode",
+                 "internvl2_prefill", "internvl2_decode", "dbrx_prefill",
+                 "dbrx_decode", "arctic_prefill", "arctic_decode",
+                 "whisper_encoder", "whisper_prefill",
+                 "whisper_cross_prefill", "whisper_decode",
+                 "whisper_cross_decode")
+
+
 def kernels_line(errs, launches, variants, per, launches_train, profiles):
     def by_kernel(kernel, runs):
         return {arch: n[kernel] for arch, n in runs.items() if n[kernel]}
 
     def serving_err(tag):  # bf16 serving shapes, the variant chosen there
         name, dtype, variant = tag.split("/")[:3]
-        return (name in ("prefill", "decode", "hymba_prefill",
-                         "hymba_decode")
-                and dtype == "bfloat16" and variant != "simt")
+        return (name in SERVING_CASES and dtype == "bfloat16"
+                and variant != "simt")
 
     flash = kernel_entry(
         "flash_attention",

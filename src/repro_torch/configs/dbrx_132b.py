@@ -1,0 +1,13 @@
+"""dbrx-132b [moe] — 16 experts top-4, fine-grained [hf:databricks/dbrx-base,
+unverified]."""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="dbrx-132b", family="moe",
+    n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8,
+    d_ff=10752, vocab=100352, head_dim=128,
+    n_experts=16, moe_topk=4,
+    fsdp=True,
+    skip_shapes=("long_500k",),
+    skip_reason="pure full attention: O(S^2) at 524k seq (DESIGN.md §5)",
+)

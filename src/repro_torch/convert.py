@@ -5,8 +5,9 @@ The JAX side hands over its param tree as nested dicts of numpy arrays
 (``jax.tree_util.tree_map(np.asarray, params)``), or a checkpoint of it
 read back by ``repro_torch.train.checkpoint.restore`` as tensors; this
 module never imports JAX. The port keeps JAX's (in, out) weight layout, so
-the conversion splits the stacked (L, ...) layer leaves and renames;
-nothing is transposed. ``params_to_numpy`` goes the other way.
+the conversion splits the stacked (L, ...) layer leaves (the decoder's and
+encdec's encoder's) and renames; nothing is transposed.
+``params_to_numpy`` goes the other way.
 """
 from __future__ import annotations
 
@@ -39,29 +40,41 @@ def _leaves(tree: Any, prefix: str) -> Iterator[Tuple[str, Any]]:
         yield prefix, tree
 
 
+def stacked_depths(cfg: ArchConfig) -> Dict[str, int]:
+    """The JAX tree's subtrees whose leaves are stacked (L, ...), and their
+    depths: the decoder ``layers`` and encdec's ``encoder``."""
+    return {"layers": cfg.n_layers, "encoder": cfg.encoder_layers}
+
+
 def params_from_jax(cfg: ArchConfig,
                     tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``TransformerLM`` (or subclass: rwkv6, hymba) params -> the
-    port's ``state_dict``.
+    """JAX ``TransformerLM`` (or subclass) params -> the port's
+    ``state_dict``.
 
-    Every leaf under ``layers`` is stacked (L, ...), whatever its depth in
-    the tree (hymba's bare ``attn_norm``, rwkv6's ``att.mu`` (L, 5, d));
-    layer i's slice becomes ``layers.{i}.<path>``. Load the result with
+    Every leaf under ``layers`` (and encdec's ``encoder``) is stacked (L,
+    ...), whatever its depth in the tree (hymba's bare ``attn_norm``,
+    rwkv6's ``att.mu`` (L, 5, d)); layer i's slice becomes
+    ``layers.{i}.<path>``. Every other leaf (``embed``, ``lm_head``,
+    ``final_norm``, encdec's ``frontend`` and ``enc_norm``, vlm's
+    ``projector``) keeps its dotted path. Load the result with
     ``model.load_state_dict(sd)``; tensors come back on the CPU and are
     copied onto the model's device by the load.
     """
-    sd: Dict[str, torch.Tensor] = {"embed": to_tensor(tree["embed"])}
-    if not cfg.tie_embeddings:
-        sd["lm_head"] = to_tensor(tree["lm_head"])
-    for path, leaf in _leaves(tree["final_norm"], "final_norm"):
-        sd[path] = to_tensor(leaf)
-    for path, stacked in _leaves(tree["layers"], ""):
-        stacked = to_tensor(stacked)
-        if stacked.shape[0] != cfg.n_layers:
-            raise ValueError(f"layers{path}: leading dim {stacked.shape[0]} "
-                             f"!= {cfg.n_layers}")
-        for i in range(cfg.n_layers):
-            sd[f"layers.{i}{path}"] = stacked[i].clone()
+    depths = stacked_depths(cfg)
+    sd: Dict[str, torch.Tensor] = {}
+    for top, sub in tree.items():
+        for path, leaf in _leaves(sub, top):
+            leaf = to_tensor(leaf)
+            if top not in depths:
+                sd[path] = leaf
+                continue
+            L = depths[top]
+            if leaf.shape[0] != L:
+                raise ValueError(f"{path}: leading dim {leaf.shape[0]} != "
+                                 f"{L}")
+            rest = path[len(top):]
+            for i in range(L):
+                sd[f"{top}.{i}{rest}"] = leaf[i].clone()
     return sd
 
 
@@ -75,23 +88,26 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 def params_to_numpy(cfg: ArchConfig,
                     state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of ``params_from_jax``: the port's per-layer leaves
-    (``layers.{i}.<path>``) restacked to (L, ...) under the JAX tree's
-    nested dicts, every leaf a numpy array (bf16 as f32)."""
+    (``layers.{i}.<path>``, ``encoder.{i}.<path>``) restacked to (L, ...)
+    under the JAX tree's nested dicts, every leaf a numpy array (bf16 as
+    f32)."""
+    depths = stacked_depths(cfg)
     tree: Dict[str, Any] = {}
-    per_layer: Dict[str, list] = {}
+    per_layer: Dict[Tuple[str, str], list] = {}
     for name, t in state_dict.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(".".join(parts[2:]), []).append(
+        if parts[0] in depths:
+            per_layer.setdefault((parts[0], ".".join(parts[2:])), []).append(
                 (int(parts[1]), t))
         else:
             _put(tree, parts, _to_numpy(t))
-    for path, items in per_layer.items():
+    for (top, path), items in per_layer.items():
         items.sort(key=lambda it: it[0])
-        if [i for i, _ in items] != list(range(cfg.n_layers)):
-            raise ValueError(f"layers.*.{path}: layers {[i for i, _ in items]}"
-                             f", expected 0..{cfg.n_layers - 1}")
-        _put(tree, ["layers"] + path.split("."),
+        L = depths[top]
+        if [i for i, _ in items] != list(range(L)):
+            raise ValueError(f"{top}.*.{path}: layers {[i for i, _ in items]}"
+                             f", expected 0..{L - 1}")
+        _put(tree, [top] + path.split("."),
              np.stack([_to_numpy(t) for _, t in items]))
     return tree
 

@@ -6,10 +6,13 @@ their outputs through raw pointers, so an output of theirs has no
 forward and, in its backward, recomputes the same function through
 autograd of the plain version the JAX package trains through:
 
-- ``FlashAttentionFn``: ``models.common.attention_plain``, the non-flash
-  dispatch of JAX ``transformer.causal_attention`` (banded for a sliding
-  window that tiles the sequence at least twice, else chunked with
-  ``block_k = min(1024, max(S, 128))``);
+- ``FlashAttentionFn``: ``models.common.attention_plain``, the plain
+  function of the caller: the dispatch of JAX
+  ``transformer.causal_attention`` (banded for a sliding window that tiles
+  the sequence at least twice, else chunked with ``block_k = min(1024,
+  max(S, 128))``), or, where the caller passes its ``block_k``,
+  ``attention_chunked`` at that ``block_k``, as JAX's direct call sites
+  (encdec, the moe and vlm prefills) train through;
 - ``GlaScanFn``: ``kernels.gla_scan.gla_scan_ref``, the function the GLA
   kernel computes (``gla_chunked`` in chunks of 32, ``shifted_prev``).
 
@@ -53,16 +56,18 @@ def _recompute_grads(fn, inputs: Sequence[Optional[torch.Tensor]],
 class FlashAttentionFn(torch.autograd.Function):
     """q (B,Sq,H,D), k/v (B,Sk,G,D), contiguous; int32 positions or None.
     ``self_attention`` says that qpos and kpos are the same positions, the
-    condition of the banded backward."""
+    condition of the banded backward; ``block_k`` (or None) is the
+    caller's, passed on to ``attention_plain``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int,
                 qpos: Optional[torch.Tensor], kpos: Optional[torch.Tensor],
-                self_attention: bool):
+                self_attention: bool, block_k: Optional[int] = None):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(q, k, v, qpos, kpos)
         ctx.causal, ctx.window, ctx.self_attention = (causal, window,
                                                       self_attention)
+        ctx.block_k = block_k
         from repro_torch.kernels import flash_attention as _fa
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    qpos=qpos, kpos=kpos)
@@ -70,19 +75,20 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         if do is None:
-            return (None,) * 8
+            return (None,) * 9
         q, k, v, qpos, kpos = ctx.saved_tensors
 
         def plain(q, k, v):
             return (cm.attention_plain(
                 q, k, v, causal=ctx.causal, window=ctx.window, qpos=qpos,
-                kpos=kpos, self_attention=ctx.self_attention),)
+                kpos=kpos, self_attention=ctx.self_attention,
+                block_k=ctx.block_k),)
 
         span = BACKWARD_SPANS["flash_attention"]
         with torch.profiler.record_function(span):
             dq, dk, dv = _recompute_grads(plain, (q, k, v),
                                           ctx.needs_input_grad[:3], (do,))
-        return dq, dk, dv, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 class GlaScanFn(torch.autograd.Function):

@@ -24,11 +24,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     qpos: Optional[torch.Tensor] = None,
                     kpos: Optional[torch.Tensor] = None,
-                    self_attention: bool = False) -> torch.Tensor:
+                    self_attention: bool = False,
+                    block_k: Optional[int] = None) -> torch.Tensor:
     """Flash attention. q (B,S,H,D), k/v (B,S,G,D) model layout, positions
-    of any integer type; returns (B,S,H,D). ``self_attention`` (qpos and
-    kpos are the same positions) lets the backward take the banded plain
-    version, as JAX trains through it."""
+    of any integer type; returns (B,S,H,D). The backward is the caller's
+    plain function (``models.common.attention_plain``): ``self_attention``
+    (qpos and kpos are the same positions) lets it take the banded plain
+    version, as JAX trains through it; a ``block_k`` names a caller that
+    calls ``attention_chunked`` at that ``block_k`` directly."""
     if qpos is not None:
         qpos = qpos.to(device=q.device, dtype=torch.int32).contiguous()
     if kpos is not None:
@@ -36,7 +39,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if wants_grad(q, k, v):
         return FlashAttentionFn.apply(q, k, v, causal, window, qpos, kpos,
-                                      self_attention)
+                                      self_attention, block_k)
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                qpos=qpos, kpos=kpos)
 

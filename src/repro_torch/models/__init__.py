@@ -1,4 +1,5 @@
-"""Model zoo: the dense family, rwkv6 (ssm) and hymba (hybrid)."""
-from repro_torch.models.registry import build_model
+"""Model zoo: the dense family, rwkv6 (ssm), hymba (hybrid), moe,
+encdec and vlm."""
+from repro_torch.models.registry import build_model, prefix_len, side_inputs
 
-__all__ = ["build_model"]
+__all__ = ["build_model", "prefix_len", "side_inputs"]

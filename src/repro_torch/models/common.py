@@ -15,6 +15,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import flags
+
 
 # ------------------------------------------------------------------- norms --
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -194,29 +196,48 @@ def attention_plain(q, k, v, *, causal: bool = True, window: int = 0,
                     qpos: Optional[torch.Tensor] = None,
                     kpos: Optional[torch.Tensor] = None,
                     self_attention: bool = True,
-                    impl: str = "chunked") -> torch.Tensor:
-    """The plain attention the JAX package trains through, the dispatch of
-    JAX ``transformer.causal_attention``: banded O(S*w) when a sliding
-    window tiles a causal self-attention at least twice, else ``impl``:
-    ``"chunked"`` online softmax with ``block_k = min(1024, max(S, 128))``
-    (JAX's), or ``"ref"``. ``self_attention`` says that qpos and kpos are
-    the same positions."""
+                    impl: str = "chunked",
+                    block_k: Optional[int] = None) -> torch.Tensor:
+    """The plain attention the JAX package trains through.
+
+    With ``block_k`` None, the dispatch of JAX
+    ``transformer.causal_attention``: banded O(S*w) when a sliding window
+    tiles a causal self-attention at least twice and ``REPRO_NO_BANDED``
+    is not set, else ``impl``: ``"chunked"`` online softmax with
+    ``block_k = min(1024, max(S, 128))`` (JAX's), or ``"ref"``. An int
+    ``block_k`` stands for the JAX call sites that call
+    ``attention_chunked`` directly (encdec; the moe and vlm prefills):
+    no banded path, and ``"chunked"`` at that ``block_k``.
+    ``self_attention`` says that qpos and kpos are the same positions."""
     S = k.shape[1]
     w = window
-    if (causal and self_attention and w and q.shape[1] == S and S % w == 0
-            and S >= 2 * w):
+    if (block_k is None and causal and self_attention and w
+            and q.shape[1] == S and S % w == 0 and S >= 2 * w
+            and not flags.no_banded_attention()):
         return attention_banded(q, k, v, window=w, qpos=qpos, kpos=kpos)
     if impl == "ref":
         return attention_ref(q, k, v, causal=causal, window=w, qpos=qpos,
                              kpos=kpos)
     return attention_chunked(q, k, v, causal=causal, window=w, qpos=qpos,
-                             kpos=kpos, block_k=min(1024, max(S, 128)))
+                             kpos=kpos,
+                             block_k=block_k or min(1024, max(S, 128)))
 
 
 ATTN_IMPLS: Dict[str, Callable] = {
     "ref": attention_ref,
     "chunked": attention_chunked,
 }
+
+
+def chunked_call(impl: str, q, k, v, *, block_k: int = 512,
+                 **kw) -> torch.Tensor:
+    """A JAX call site that calls ``attention_chunked`` directly, at its
+    default ``block_k`` unless it names one: the kernel (``"flash"``),
+    whose backward is then ``attention_chunked`` at the same ``block_k``,
+    ``attention_chunked`` itself, or ``attention_ref`` (``"ref"``)."""
+    if impl == "ref":
+        return attention_ref(q, k, v, **kw)
+    return make_attention(impl)(q, k, v, block_k=block_k, **kw)
 
 
 def make_attention(impl: str, **defaults) -> Callable:

@@ -135,6 +135,22 @@ class HymbaLM(TransformerLM):
         return x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
 
     # ------------------------------------------------------------- decode --
+    def init_cache(self, B: int, W: int) -> HymbaCache:
+        """An empty ring of ``W`` slots (kpos -1) and zero SSM and shift
+        states, as JAX ``HymbaLM.init_cache``."""
+        cfg = self.cfg
+        L, d = cfg.n_layers, cfg.d_model
+        H, G, hd, N = cfg.n_heads, cfg.n_kv_heads, cfg.hdim, cfg.ssm_state
+        dev = self.embed.device
+        kv = (L, B, W, G, hd)
+        return HymbaCache(
+            k=torch.zeros(kv, dtype=cfg.tdtype, device=dev),
+            v=torch.zeros(kv, dtype=cfg.tdtype, device=dev),
+            kpos=torch.full((W,), -1, dtype=torch.int32, device=dev),
+            ssm=torch.zeros((L, B, H, N, hd), dtype=torch.float32,
+                            device=dev),
+            shift=torch.zeros((L, B, d), dtype=cfg.tdtype, device=dev))
+
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None

@@ -2,7 +2,9 @@
 sliding window), swiglu/gelu FFN, KV-cache prefill/decode. Covers the dense
 archs qwen2.5-14b, granite-3-2b, qwen3-4b and stablelm-12b, and is the base
 of ``rwkv6.Rwkv6LM`` and ``hymba.HymbaLM``, which override ``make_block``,
-``layer_body``, ``prefill`` and ``decode_step``.
+``layer_body``, ``prefill`` and ``decode_step``; of ``moe.MoETransformerLM``
+(``ffn``); of ``encdec.EncDecLM`` (``logits``, ``prefill``,
+``decode_step``); and of ``vlm.VlmLM`` (``logits``, ``prefill``).
 
 Counterpart of ``repro/models/transformer.py``. Layers are an
 ``nn.ModuleList`` instead of the stacked (L, ...) scan carrier; weight
@@ -16,9 +18,10 @@ CUDA kernel through ``kernels.ops.flash_attention``; ``"ref"`` and
 full-sequence paths keeping the JAX package's banded dispatch for sliding
 windows (``"chunked"`` there is exactly JAX ``causal_attention``).
 
-Training: ``loss`` runs embed -> ``backbone`` (each layer under
-``torch.utils.checkpoint`` with ``remat``, as JAX's scan runs it under
-``jax.checkpoint``) -> ``unembed`` -> ``softmax_xent`` with gradients on;
+Training: ``loss`` runs ``logits`` (embed -> ``backbone``, each layer
+under ``torch.utils.checkpoint`` with ``remat``, as JAX's scan runs it
+under ``jax.checkpoint`` -> ``unembed``) -> ``softmax_xent`` with
+gradients on;
 the kernels carry them through ``kernels.autograd``. ``forward``,
 ``prefill`` and ``decode_step`` serve under ``torch.no_grad``.
 """
@@ -65,7 +68,12 @@ class Norm(_Params):
 
 
 class Attention(_Params):
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    """q/k/v/o projections; the qkv bias and qk-norm of the config, except
+    for cross-attention (``cross``), which takes neither (JAX
+    ``attention_specs(cross=True)``)."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device, *,
+                 cross: bool = False):
         super().__init__()
         d, hd, H, G, dt = (cfg.d_model, cfg.hdim, cfg.n_heads,
                            cfg.n_kv_heads, cfg.tdtype)
@@ -73,11 +81,11 @@ class Attention(_Params):
         self.add("wk", (d, G * hd), dt, "scaled", device)
         self.add("wv", (d, G * hd), dt, "scaled", device)
         self.add("wo", (H * hd, d), dt, "scaled", device)
-        if cfg.qkv_bias:
+        if cfg.qkv_bias and not cross:
             self.add("bq", (H * hd,), dt, "zeros", device)
             self.add("bk", (G * hd,), dt, "zeros", device)
             self.add("bv", (G * hd,), dt, "zeros", device)
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             self.add("q_norm", (hd,), torch.float32, "ones", device)
             self.add("k_norm", (hd,), torch.float32, "ones", device)
 
@@ -100,6 +108,13 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device)
 
 
+# a leaf above this many elements draws its f32 noise one slice along dim
+# 0 at a time: arctic-480b's expert leaf wi (128, 7168, 9728) would need a
+# 35.7 GB temporary beside 55.6 GB of weights. Every leaf of the dense and
+# recurrent families is below it, so their draws are unchanged
+NOISE_SLICE_ELEMS = 1 << 30
+
+
 def _init_param(p: torch.Tensor, init: str,
                 generator: torch.Generator) -> None:
     """The distributions of ``repro.models.common.init_param``, on p's
@@ -116,9 +131,15 @@ def _init_param(p: torch.Tensor, init: str,
         std = 1.0 / math.sqrt(p.shape[-2] if p.dim() >= 2 else p.shape[-1])
     else:                     # 'normal'
         std = 0.02
-    noise = torch.randn(p.shape, generator=generator, device=p.device,
-                        dtype=torch.float32)
-    p.copy_(noise.mul_(std))
+    if p.numel() <= NOISE_SLICE_ELEMS:
+        noise = torch.randn(p.shape, generator=generator, device=p.device,
+                            dtype=torch.float32)
+        p.copy_(noise.mul_(std))
+        return
+    for part in p:
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=p.device,
+                               dtype=torch.float32).mul_(std))
 
 
 # ---------------------------------------------------------------- compute --
@@ -129,9 +150,11 @@ def apply_norm(cfg: ArchConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
 
 
 def project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
-                positions: torch.Tensor
+                positions: torch.Tensor, *, rope: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,G,hd), with bias/qk-norm/RoPE."""
+    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,G,hd), with bias/qk-norm/RoPE
+    (``rope=False``: no rotation, as encdec's sinusoid-embedded
+    attention)."""
     B, S, _ = x.shape
     H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
@@ -143,8 +166,9 @@ def project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
     if cfg.qk_norm:
         q = cm.rms_norm(q, p.q_norm)
         k = cm.rms_norm(k, p.k_norm)
-    q = cm.apply_rope(q, positions, cfg.rope_theta)
-    k = cm.apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = cm.apply_rope(q, positions, cfg.rope_theta)
+        k = cm.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -170,7 +194,8 @@ def causal_attention(cfg: ArchConfig, q, k, v, positions: torch.Tensor,
 def decode_attention_raw(cfg: ArchConfig, p: Attention, x: torch.Tensor,
                          k_cache: torch.Tensor, v_cache: torch.Tensor,
                          pos: int, kpos: torch.Tensor, *,
-                         attn_impl: str = "flash") -> torch.Tensor:
+                         attn_impl: str = "flash",
+                         rope: bool = True) -> torch.Tensor:
     """One-token decode against a (B, S_max, G, hd) cache slice.
 
     Returns the pre-projection heads (B,1,H,hd). Unlike the JAX version,
@@ -180,7 +205,7 @@ def decode_attention_raw(cfg: ArchConfig, p: Attention, x: torch.Tensor,
     maintained by the caller.
     """
     positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = project_qkv(cfg, p, x, positions)
+    q, k, v = project_qkv(cfg, p, x, positions, rope=rope)
     write = pos % k_cache.shape[1]
     k_cache[:, write] = k[:, 0].to(k_cache.dtype)
     v_cache[:, write] = v[:, 0].to(v_cache.dtype)
@@ -241,6 +266,19 @@ def ring_layout(ks: torch.Tensor, vs: torch.Tensor, S: int,
                           torch.full((pad,), -1, dtype=torch.int32,
                                      device=dev)])
     return ks, vs, kpos
+
+
+def run_layers(body, layers, x: torch.Tensor, *args,
+               remat: bool) -> torch.Tensor:
+    """``x = body(p, x, *args)`` for every layer p in turn. With ``remat``
+    (and grad mode on) each body runs under ``torch.utils.checkpoint``:
+    only its input is kept and the body runs again in the backward, as
+    JAX's ``jax.checkpoint(nothing_saveable)`` does over its scans."""
+    remat = remat and torch.is_grad_enabled()
+    for p in layers:
+        x = (checkpoint(body, p, x, *args, use_reentrant=False) if remat
+             else body(p, x, *args))
+    return x
 
 
 @dataclasses.dataclass
@@ -306,7 +344,12 @@ class TransformerLM(nn.Module):
                               positions)
         o = causal_attention(cfg, q, k, v, positions, self.attn_impl)
         x = x + attn_out(p.attn, o)
-        return x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+        return x + self.ffn(p, apply_norm(cfg, p.ln2, x))
+
+    def ffn(self, p: nn.Module, h: torch.Tensor) -> torch.Tensor:
+        """The layer's feed-forward block on its normed input; the moe
+        family overrides it."""
+        return mlp(self.cfg, p.mlp, h)
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -324,23 +367,15 @@ class TransformerLM(nn.Module):
 
     def backbone(self, x: torch.Tensor, positions: torch.Tensor, *,
                  remat: bool = True) -> torch.Tensor:
-        """Every layer in turn. With ``remat`` (and grad mode on) each layer
-        body runs under ``torch.utils.checkpoint``: only its input is kept
-        and the body runs again in the backward, as JAX's
-        ``jax.checkpoint(nothing_saveable)`` does."""
-        remat = remat and torch.is_grad_enabled()
-        for p in self.layers:
-            if remat:
-                x = checkpoint(self.layer_body, p, x, positions,
-                               use_reentrant=False)
-            else:
-                x = self.layer_body(p, x, positions)
-        return x
+        return run_layers(self.layer_body, self.layers, x, positions,
+                          remat=remat)
 
-    def logits(self, tokens: torch.Tensor, *,
+    def logits(self, batch: Dict[str, torch.Tensor], *,
                remat: bool = True) -> torch.Tensor:
-        """(B, S) tokens -> (B, S, padded vocab) logits, with gradients
-        when grad mode is on."""
+        """The batch's (B, S) tokens -> (B, S, padded vocab) logits, with
+        gradients when grad mode is on; the encdec and vlm families
+        override it to read their frames or patches."""
+        tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
         x = self.backbone(self.embed_tokens(tokens), positions, remat=remat)
@@ -348,15 +383,18 @@ class TransformerLM(nn.Module):
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.logits(batch["tokens"], remat=False)
+        return self.logits(batch, remat=False)
 
     def loss(self, batch: Dict[str, torch.Tensor], *, remat: bool = True
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Next-token cross entropy, as JAX ``TransformerLM.loss``: targets
-        are the tokens rolled by -1, the last position masked. Returns
-        (loss, {"loss", "tokens"})."""
+        are the tokens rolled by -1, the last position masked. The loss
+        reads the logits of the tokens, the last S positions (vlm's patch
+        prefix ahead of them takes none, as in JAX ``VlmLM.loss``).
+        Returns (loss, {"loss", "tokens"})."""
         tokens = batch["tokens"]
-        logits = self.logits(tokens, remat=remat)
+        logits = self.logits(batch, remat=remat)
+        logits = logits[:, logits.shape[1] - tokens.shape[1]:]
         targets = torch.roll(tokens, -1, dims=1)
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
@@ -365,6 +403,17 @@ class TransformerLM(nn.Module):
         return loss, {"loss": loss, "tokens": denom}
 
     # ------------------------------------------------------------- decode --
+    def init_cache(self, B: int, S_max: int) -> DecodeCache:
+        """An empty ring of ``S_max`` slots (kpos -1), as JAX
+        ``init_cache``."""
+        cfg = self.cfg
+        shp = (cfg.n_layers, B, S_max, cfg.n_kv_heads, cfg.hdim)
+        dev = self.embed.device
+        return DecodeCache(
+            k=torch.zeros(shp, dtype=cfg.tdtype, device=dev),
+            v=torch.zeros(shp, dtype=cfg.tdtype, device=dev),
+            kpos=torch.full((S_max,), -1, dtype=torch.int32, device=dev))
+
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None
@@ -374,21 +423,27 @@ class TransformerLM(nn.Module):
         ``cache_len`` reserves headroom for subsequent decode steps; the
         cache layout is a ring keyed by slot = position % cache_len.
         """
+        return self.prefill_embedded(self.embed_tokens(batch["tokens"]),
+                                     cache_len)
+
+    def prefill_embedded(self, x: torch.Tensor, cache_len: Optional[int]
+                         ) -> Tuple[torch.Tensor, DecodeCache]:
+        """``prefill`` from the embedded inputs x (B, S, d) at positions
+        0..S-1 (the vlm family prepends its patches). Attention is JAX's
+        direct ``attention_chunked`` call (``cm.chunked_call``)."""
         cfg = self.cfg
-        tokens = batch["tokens"]
-        S = tokens.shape[1]
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-        x = self.embed_tokens(tokens)
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
         ks: List[torch.Tensor] = []
         vs: List[torch.Tensor] = []
         for p in self.layers:
             q, k, v = project_qkv(cfg, p.attn, apply_norm(cfg, p.ln1, x),
                                   positions)
-            o = cm.make_attention(self.attn_impl)(
-                q, k, v, causal=True, window=cfg.sliding_window,
-                qpos=positions, kpos=positions)
+            o = cm.chunked_call(self.attn_impl, q, k, v, causal=True,
+                                window=cfg.sliding_window, qpos=positions,
+                                kpos=positions)
             x = x + attn_out(p.attn, o)
-            x = x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+            x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
             ks.append(k)
             vs.append(v)
         logits = self.unembed(x)
@@ -410,5 +465,5 @@ class TransformerLM(nn.Module):
                 cfg, p.attn, apply_norm(cfg, p.ln1, x), cache.k[i],
                 cache.v[i], pos, cache.kpos, attn_impl=self.attn_impl)
             x = x + attn_out(p.attn, o)
-            x = x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
+            x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
         return self.unembed(x), cache

@@ -1,8 +1,11 @@
 """Serving flow: batched prefill + greedy decode, fronted by the JoSS
 request router (policy A for fresh sessions, cache affinity for
 follow-ups). The port of ``examples/serve_lm.py``. The model's cache is
-whatever its family keeps: a ring KV cache (dense), an O(1) GLA state
-(rwkv6), or a sliding-window ring plus the SSM state (hymba).
+whatever its family keeps: a ring KV cache (dense, moe, vlm), an O(1) GLA
+state (rwkv6), a sliding-window ring plus the SSM state (hymba), or a ring
+plus the cross-attention K/V of the encoder states (encdec). Encdec's
+audio frames and vlm's patches are seeded stand-ins for the stubbed
+frontends, shaped as the JAX package's ``input_specs``.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve.lm [--requests 8]
 """
@@ -20,7 +23,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.topology import VirtualCluster
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import build_model, prefix_len, side_inputs
 from repro_torch.serve.router import JossServeRouter, Request, RouteDecision
 from repro_torch.train import make_prefill_step, make_serve_step
 
@@ -65,15 +68,21 @@ def _sync(device: torch.device) -> None:
 def serve(cfg: ArchConfig, n_requests: int, prompt_len: int, gen_len: int,
           *, device: DeviceLike = None, seed: int = 0,
           params: Optional[Dict[str, torch.Tensor]] = None,
-          prompts: Optional[np.ndarray] = None) -> ServeResult:
+          prompts: Optional[np.ndarray] = None,
+          n_frames: Optional[int] = None,
+          inputs: Optional[Dict[str, np.ndarray]] = None) -> ServeResult:
     """Route ``n_requests`` requests, prefill their prompts with
-    ``cache_len = P + G`` (rwkv6 ignores it; hymba's ring keeps at most
-    its window) and run G-1 greedy decode steps.
+    ``cache_len = V + P + G`` (rwkv6 ignores it; hymba's ring keeps at
+    most its window) and run G-1 greedy decode steps at positions V + P +
+    i. V is vlm's patch prefix (``vis_tokens``), 0 for the other families.
 
     ``params`` is a state dict (e.g. from ``convert.params_from_jax``);
     without it the weights are drawn on the device from a generator seeded
     with ``seed``. ``prompts`` (B, P) defaults to
-    ``RandomState(seed).randint(0, vocab)``.
+    ``RandomState(seed).randint(0, vocab)``. ``inputs`` holds encdec's
+    ``frames`` or vlm's ``patches``; they default to
+    ``models.side_inputs`` from ``seed + 1`` (encdec: ``n_frames`` frames,
+    P by default, as JAX's ``input_specs`` give a prefill cell S frames).
     """
     dev = resolve_device(device)
     B, P, G = n_requests, prompt_len, gen_len
@@ -90,19 +99,25 @@ def serve(cfg: ArchConfig, n_requests: int, prompt_len: int, gen_len: int,
         prompts = np.random.RandomState(seed).randint(0, cfg.vocab, (B, P))
     tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int32,
                              device=dev)
-    prefill = make_prefill_step(model, cache_len=P + G)
+    if inputs is None:
+        inputs = side_inputs(cfg, B, seed=seed + 1, n_frames=n_frames or P)
+    batch = {"tokens": tokens}
+    batch.update({name: torch.as_tensor(x, device=dev).to(cfg.tdtype)
+                  for name, x in inputs.items()})
+    offset = prefix_len(cfg)
+    prefill = make_prefill_step(model, cache_len=offset + P + G)
     decode = make_serve_step(model)
 
     _sync(dev)
     t0 = time.perf_counter()
-    next_tok, cache = prefill({"tokens": tokens})
+    next_tok, cache = prefill(batch)
     _sync(dev)
     prefill_s = time.perf_counter() - t0
     out = [next_tok]
     step_logits = []
     t0 = time.perf_counter()
     for i in range(G - 1):
-        next_tok, logits, cache = decode(cache, out[-1], P + i)
+        next_tok, logits, cache = decode(cache, out[-1], offset + P + i)
         out.append(next_tok)
         step_logits.append(logits)
     _sync(dev)
@@ -123,11 +138,14 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--frames", type=int, default=None,
+                    help="encdec: audio frames a request (default: the "
+                         "prompt length)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch).smoke()
     B, P, G = args.requests, args.prompt_len, args.gen_len
-    res = serve(cfg, B, P, G)
+    res = serve(cfg, B, P, G, n_frames=args.frames)
     for d in res.decisions:
         print(f"route {d.rid}: pod {d.pod} (policy {d.policy}, "
               f"cache_hit={d.cache_hit})")

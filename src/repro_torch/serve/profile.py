@@ -2,12 +2,15 @@
 decode steps under ``torch.profiler``, at full width and depth.
 
 Run:  PYTHONPATH=src python -m repro_torch.serve.profile [--arch ARCH]
-                                                        [--prompt-len P]
+                  [--prompt-len P] [--n-layers L] [--frames F]
 
 The configuration is one of chip_smoke.py's serving runs: 8 requests of
 ``--prompt-len`` tokens (512 by default; chip_smoke.py gives hymba-1.5b
-2048) of ``--arch`` (qwen3-4b by default, or rwkv6-7b, hymba-1.5b), with 4
-profiled decode steps.
+2048, whisper-medium 224 beside 3000 frames) of ``--arch`` (qwen3-4b by
+default, or any other arch; ``--n-layers`` cuts the depth, as
+chip_smoke.py runs dbrx-132b at 8 layers and arctic-480b at 2), with 4
+profiled decode steps. Encdec's frames and vlm's patches are
+``models.side_inputs``'s, and vlm's positions count its patch prefix.
 
 Prints one JSON line: host-clock prefill seconds and decode ms per step
 (without the profiler, after a warm-up; the median of 11 runs of each, and
@@ -30,7 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import build_model, prefix_len, side_inputs
 from repro_torch.train import make_prefill_step, make_serve_step
 
 REQUESTS, STEPS, TOP, REPEATS = 8, 4, 12, 11
@@ -67,22 +70,32 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
     ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--n-layers", type=int, default=None)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="encdec: audio frames a request (default: the "
+                         "prompt length)")
     args = ap.parse_args(argv)
     dev = resolve_device(None)
     cfg = get_config(args.arch)
+    if args.n_layers:
+        cfg = cfg.scaled(n_layers=args.n_layers)
     B, P, G = REQUESTS, args.prompt_len, STEPS + 1
     model = build_model(cfg, device=dev)
     model.init_params(torch.Generator(device=dev).manual_seed(0))
-    prompts = torch.as_tensor(np.random.RandomState(0).randint(
-        0, cfg.vocab, (B, P)), dtype=torch.int32, device=dev)
+    batch = {"tokens": torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab, (B, P)), dtype=torch.int32, device=dev)}
+    for name, x in side_inputs(cfg, B, seed=1,
+                               n_frames=args.frames or P).items():
+        batch[name] = torch.as_tensor(x, device=dev).to(cfg.tdtype)
+    P += prefix_len(cfg)
     prefill = make_prefill_step(model, cache_len=P + G)
     decode = make_serve_step(model)
-    nxt, cache = prefill({"tokens": prompts})          # warm-up
+    nxt, cache = prefill(batch)                        # warm-up
     decode(cache, nxt, P)
     state = {}
 
     def run_prefill():
-        state["nxt"], state["cache"] = prefill({"tokens": prompts})
+        state["nxt"], state["cache"] = prefill(batch)
 
     def run_decode():
         nxt = state["nxt"]
@@ -105,7 +118,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     dec_prof_s, dec_busy, dec_top = _window(run_decode)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "arch": cfg.name,
-        "requests": B, "prompt_len": P, "decode_steps": STEPS,
+        "n_layers": cfg.n_layers, "requests": B,
+        "prompt_len": P,                    # vlm: with its patch prefix
+        "decode_steps": STEPS,
         "prefill_s": float(np.median(pf_runs)), "prefill_s_runs": pf_runs,
         "decode_ms_per_step": float(np.median(dec_runs)),
         "decode_ms_per_step_runs": dec_runs,

@@ -9,8 +9,9 @@ arithmetic runs (the transport saving belongs to a cross-host reduce).
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
 
 The scale is per JAX leaf: JAX stacks a layer leaf into (L, ...), so the
-port's ``layers.{i}.<path>`` leaves of one path share the scale of their
-stack, the largest |value| over all L layers (``stack_key``).
+port's ``layers.{i}.<path>`` (and ``encoder.{i}.<path>``) leaves of one
+path share the scale of their stack, the largest |value| over all L layers
+(``stack_key``).
 """
 from __future__ import annotations
 
@@ -65,8 +66,9 @@ def compress_decompress(grads: Mapping[str, torch.Tensor],
 
 def stack_key(name: str) -> str:
     """The JAX leaf a port leaf belongs to: ``layers.3.attn.wq`` ->
-    ``layers.*.attn.wq``; other names stand for themselves."""
+    ``layers.*.attn.wq``, ``encoder.3.mlp.wi`` -> ``encoder.*.mlp.wi``
+    (encdec's stacked encoder); other names stand for themselves."""
     parts = name.split(".")
-    if parts[0] == "layers" and len(parts) > 2:
-        return ".".join(["layers", "*"] + parts[2:])
+    if parts[0] in ("layers", "encoder") and len(parts) > 2:
+        return ".".join([parts[0], "*"] + parts[2:])
     return name

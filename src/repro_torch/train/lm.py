@@ -9,9 +9,13 @@ The corpus is 32 seeded token shards placed on ``VirtualCluster([4, 4])``;
 ``JossDataPipeline`` assigns them to pods by JoSS policy B and serves
 pod-major batches. ``--smoke`` takes the arch's smoke config with a
 512-token vocab (the example's demo model); the step, loss and locality
-report are printed every 10 steps and at the end. Checkpoints go to
-``--ckpt-dir`` (``build/train_ckpt`` in the checkout by default) every
-``--ckpt-every`` steps and at the end; ``--resume`` starts from the latest.
+report are printed every 10 steps and at the end. Encdec (whisper)
+trains on seeded log-mel frame embeddings beside the pipeline's tokens
+(``--frames`` a sequence, the sequence length by default), vlm on seeded
+patch embeddings, as ``models.side_inputs`` draws them for each step.
+Checkpoints go to ``--ckpt-dir`` (``build/train_ckpt`` in the checkout by
+default) every ``--ckpt-every`` steps and at the end; ``--resume`` starts
+from the latest.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.topology import VirtualCluster
 from repro_torch.data import JossDataPipeline, TokenStore
 from repro_torch.device import resolve_device
-from repro_torch.models import build_model
+from repro_torch.models import build_model, side_inputs
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.optimizer import OptConfig, adamw_init
 from repro_torch.train.step import TrainConfig, make_train_step
@@ -43,6 +47,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--frames", type=int, default=None,
+                    help="encdec: audio frames a sequence (default: the "
+                         "sequence length)")
     ap.add_argument("--device", default=None)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--ckpt-dir", default=str(DEFAULT_CKPT))
@@ -85,6 +92,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     for i, batch_np in enumerate(pipe.batches(steps - start)):
         step = start + i + 1
         batch = {"tokens": torch.as_tensor(batch_np, device=dev)}
+        for name, x in side_inputs(cfg, B, seed=step,
+                                   n_frames=args.frames or S).items():
+            batch[name] = torch.as_tensor(x, device=dev).to(cfg.tdtype)
         opt_state, metrics = step_fn(opt_state, batch)
         if step % 10 == 0 or step == steps:
             print(f"step {step:4d}  loss {float(metrics['loss']):.4f}  "

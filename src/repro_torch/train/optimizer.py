@@ -10,8 +10,9 @@ the params and the state in place (the model holds its parameters).
 Weight decay follows JAX's decision leaf by leaf. JAX decays a leaf iff
 ``p.ndim >= 2``, meant as "no decay on norms and biases", but its layer
 leaves carry the stacked L dim, so every layer leaf decays (norm scales,
-biases, ``ln_x``, ``u`` and ``a_log`` included) and only the
-``final_norm`` leaves do not. ``decays`` reproduces that by name.
+biases, ``ln_x``, ``u`` and ``a_log`` included), as does every leaf of
+encdec's stacked encoder, and of the other leaves only the matrices do.
+``decays`` reproduces that by name.
 """
 from __future__ import annotations
 
@@ -71,8 +72,11 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
 
 def decays(name: str, p: torch.Tensor) -> bool:
     """JAX's ``p.ndim >= 2`` on the JAX leaf: a layer leaf always has the
-    stacked L dim there, so every ``layers.*`` leaf decays."""
-    return name.startswith("layers.") or p.dim() >= 2
+    stacked L dim there, so every ``layers.*`` leaf decays, and so does
+    every leaf of encdec's stacked ``encoder``. Of the unstacked ones, the
+    matrices decay (``frontend.proj``, ``projector.w1``) and the vectors
+    do not (``final_norm``, ``enc_norm``, ``projector.ln``)."""
+    return name.startswith(("layers.", "encoder.")) or p.dim() >= 2
 
 
 @torch.no_grad()

@@ -260,3 +260,32 @@ def test_model_grads_with_kernels_match_plain_model(arch, S):
             if w in ("att.u", "att.w0", "ssm.a_log"):
                 continue  # zero at init: may carry a zero gradient
             assert out["kern"][1][f"layers.{i}.{w}"].abs().max() > 0, w
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_follows_the_callers_block_k(causal):
+    """A caller that passes its block_k (JAX's direct attention_chunked
+    call sites: encdec, the moe and vlm prefills) gets the gradients of
+    attention_chunked at that block_k exactly, not those of the
+    causal_attention dispatch, whose block_k is min(1024, max(S, 128));
+    at Sk = 700 the two split the keys differently."""
+    g = torch.Generator().manual_seed(3)
+    B, Sq, Sk, H, G, D = 1, 9, 700, 2, 1, 16
+    q, k, v = (torch.randn(s, generator=g) for s in
+               ((B, Sq, H, D), (B, Sk, G, D), (B, Sk, G, D)))
+    qpos = torch.arange(Sk - Sq, Sk, dtype=torch.int32)
+    kpos = torch.arange(Sk, dtype=torch.int32)
+    do = torch.randn(q.shape, generator=g)
+    kw = dict(causal=causal, qpos=qpos, kpos=kpos)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*leaves), leaves, do)
+
+    got = grads(lambda *x: ops.flash_attention(*x, block_k=512, **kw))
+    want = grads(lambda *x: cm.attention_chunked(*x, block_k=512, **kw))
+    other = grads(lambda *x: cm.attention_chunked(*x, block_k=700, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not all(torch.equal(a, b) for a, b in zip(got, other))
+    dispatch = grads(lambda *x: ops.flash_attention(*x, **kw))
+    assert all(torch.equal(a, b) for a, b in zip(dispatch, other))

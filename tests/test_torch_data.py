@@ -258,3 +258,38 @@ def test_jax_reads_port_checkpoint(tmp_path):
         assert torch.equal(back[name], t), name
     np.testing.assert_array_equal(np.asarray(tree["x"], np.float32),
                                   x.float().numpy())
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "internvl2-26b",
+                                  "dbrx-132b"])
+def test_checkpoints_cross_read_encdec_vlm_moe_trees(tmp_path, arch):
+    """Both directions on the trees with leaves beside the stacked layers:
+    encdec's frontend, stacked encoder and enc_norm, vlm's projector (bf16
+    params as raw bytes), and the moe's expert stacks. A JAX checkpoint
+    loads into the port's model bit for bit; the port's params, restacked
+    by params_to_numpy, read back in JAX equal to its own tree."""
+    jcfg = jconfigs.get_config(arch).smoke().scaled(dtype="bfloat16")
+    tcfg = tconfigs.get_config(arch).smoke().scaled(dtype="bfloat16")
+    params = jax_build(jcfg).init(jax.random.PRNGKey(4))
+    jax_ckpt.save(str(tmp_path / "jax"), 3, {"params": params})
+    tree, step = ckpt.restore(str(tmp_path / "jax"))
+    assert step == 3
+    m = build_model(tcfg, device="cpu")
+    m.load_state_dict(params_from_jax(tcfg, tree["params"]), strict=True)
+    want = params_from_jax(tcfg, jax.tree_util.tree_map(np.asarray, params))
+    assert m.state_dict().keys() == want.keys()
+    for name, t in m.state_dict().items():
+        assert t.dtype == want[name].dtype and torch.equal(t, want[name]), \
+            name
+
+    ckpt.save(str(tmp_path / "port"), 4, {"params": params_to_numpy(
+        tcfg, m.state_dict())})
+    back, step = jax_ckpt.restore(str(tmp_path / "port"), {"params": params})
+    assert step == 4
+    for path, w in jax.tree_util.tree_flatten_with_path(params)[0]:
+        g = back["params"]
+        for k in path:
+            g = g[k.key]
+        np.testing.assert_array_equal(np.asarray(g, np.float32),
+                                      np.asarray(w, np.float32),
+                                      err_msg=jax.tree_util.keystr(path))

@@ -38,13 +38,14 @@ def test_import_pulls_in_no_jax_and_no_repro():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, env=env, cwd=ROOT, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
-    # 40 modules: the serving slices' 27, the training slice's 13
-    assert int(r.stdout.split()[0]) >= 40, r.stdout
+    # 51 modules: the serving slices' 27, the training slice's 13, and
+    # flags, mapreduce (3), the moe/encdec/vlm models and their 4 configs
+    assert int(r.stdout.split()[0]) >= 51, r.stdout
 
 
 def test_sources_name_no_jax_and_no_repro_import():
     files = _port_files()
-    assert len(files) >= 41
+    assert len(files) >= 52
     for f in files:
         hits = FORBIDDEN.findall(f.read_text())
         assert not hits, (f, hits)
