@@ -80,6 +80,7 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.topology import VirtualCluster  # noqa: E402
 from repro_torch.data import JossDataPipeline, TokenStore  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import fill as fk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gla_scan as gs  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
@@ -89,6 +90,8 @@ from repro_torch.models import (build_model, prefix_len,  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models.recurrence import gla_chunked  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
+from repro_torch.sweep import lockstep  # noqa: E402
+from repro_torch.sweep import vmap_fill as vf  # noqa: E402
 from repro_torch.train import (OptConfig, TrainConfig, adamw_init,  # noqa: E402
                                init_train_state, make_train_step)
 from repro_torch.train.checkpoint import AsyncCheckpointer  # noqa: E402
@@ -98,6 +101,8 @@ DEV = "cuda"  # the phases run on the card
 # H100 SXM data sheet (dense): HBM3 rate and bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+# float64 outside the tensor cores (the fill kernel's arithmetic)
+FP64_FLOP_PER_S = 34e12
 # tolerances of tests/test_kernels.py: flash (atol, rtol), then GLA
 TOL = {torch.float32: (2e-5, 1e-2), torch.bfloat16: (2e-2, 1e-2)}
 GLA_TOL = {torch.float32: (7e-4, 2e-3), torch.bfloat16: (0.15, 5e-2)}
@@ -307,6 +312,201 @@ def phase_mapreduce():
     emit(phase="mapreduce", check="paper_observations", **obs)
     check(all(obs.values()), f"the paper's FP observations fail at the "
                              f"128 MiB block size: {obs}")
+
+
+# ----------------------------------------------------------------- fill --
+# the batched progressive fill kernel against its plain version, both on
+# the card, and against the scalar fill_reference on the CPU, on fill
+# problems captured from the port's own simulator: two cells of the
+# lockstep gate point (8 pods x 8 hosts, 24 jobs), a 16-pod cell whose 33
+# links pass the JAX solver's link floor of 24 (and whose classes pass its
+# class floor of 48), and the degenerate snapshots of the CPU tests
+FILL_CELLS = {
+    "gate_joss-t_oversub8": ("joss-t", "oversub8", 24, (8,) * 8),
+    "gate_fifo_oversub24": ("fifo", "oversub24", 24, (8,) * 8),
+    "gate_fifo_uncontended": ("fifo", "uncontended", 24, (8,) * 8),
+    "pods16_fifo_oversub24": ("fifo", "oversub24", 48, (8,) * 16),
+}
+FILL_LIMIT = 3000
+FILL_FLOORS = {"classes": 48, "links": 24}
+# the timed batches: 64 problems of a gate-point corpus past INLINE_C (the
+# executor's gang, and the problems it sends to the kernel)
+FILL_BATCH, FILL_ITERS = 64, 200
+FILL_TIMED = {"contended": "gate_fifo_oversub24",
+              "uncontended": "gate_fifo_uncontended"}
+
+
+def _snap(links, *classes):
+    return {"links": links,
+            "classes": [{"path": path, "cap": cap, "n": n, "vdone": vd,
+                         "target": tg} for path, cap, n, vd, tg in classes]}
+
+
+FILL_DEGENERATE = [
+    _snap([["wan", 0, 10.0]]),
+    _snap([["wan", 0, 6.0]], ([["wan", 0]], 100.0, 1, 1.0, 4.0)),
+    _snap([["wan", 0, 100.0]], ([["wan", 0]], 2.0, 2, 0.0, 8.0),
+          ([["wan", 0]], 3.0, 1, 1.0, None)),
+    _snap([["wan", 0, 10.0]], ([["wan", 0]], 100.0, 1, 0.0, 5.0),
+          ([["wan", 0]], 100.0, 1, 2.5, 5.0)),
+    _snap([["wan", 0, 10.0]], ([["wan", 0]], 2.0, 1, 0.0, 4.0),
+          ([["wan", 0]], 100.0, 1, 0.0, None)),
+    _snap([["down", 0, 1e6], ["wan", 0, 29.37]],
+          ([["down", 0], ["wan", 0]], 1.667, 4, 0.0, 3.0),
+          ([["wan", 0]], 1.667, 4, 0.0, 2.0),
+          ([["wan", 0]], 1000.0, 3, 0.0, 9.0)),
+    _snap([["down", 0, 7.3], ["wan", 0, 9.1]],
+          ([["down", 0], ["wan", 0]], 1.7, 2, 0.0, 3.0),
+          ([["wan", 0]], 1.7, 1, 0.5, 2.0),
+          ([["down", 0]], 50.0, 3, 0.0, 9.0)),
+]
+
+
+def fill_args(snaps):
+    """The kernel's inputs for a batch of snapshots, on the card."""
+    p = vf.PackedProblems(snaps)
+    arrays = (p.caps, p.members.astype(np.uint8), p.n, p.fcap, p.cap_rank,
+              p.target - p.vdone)
+    return p, tuple(torch.from_numpy(np.ascontiguousarray(a)).to(DEV)
+                    for a in arrays)
+
+
+def fill_problem(snap):
+    """A ``NetworkFabric.fill_problem()`` dict from a snapshot."""
+    p = vf.PackedProblems([snap])
+    C = max(1, len(snap["classes"]))
+    L = max(1, len(snap["links"]))
+    return {"caps": p.caps[0, :L], "members": p.members[0, :C, :L],
+            "n": p.n[0, :C], "fcap": p.fcap[0, :C],
+            "cap_rank": p.cap_rank[0, :C],
+            "remaining": p.target[0, :C] - p.vdone[0, :C]}
+
+
+def fill_work(args):
+    """(bytes, float64 operations, rounds) of one kernel call on these
+    inputs: every input read once (members as bytes) and rates, dt and
+    status written once; per problem C L for the member counts, for each
+    of its rounds 3 L + 2 C (shares, the least share, the next cap, the
+    newly fixed), C L over the whole fill for the debits' sums, and 2 C
+    for dt."""
+    caps, members, n, fcap, cap_rank, remaining = args
+    S, C, L = members.shape
+    nbytes = (8 * S * L + S * C * L + 4 * 8 * S * C) + 8 * (S * C + 2 * S)
+    rounds = int(fk.fill_rounds(caps, members, n, fcap, cap_rank).sum())
+    ops = S * (2 * C * L + 2 * C) + rounds * (3 * L + 2 * C)
+    return nbytes, ops, rounds
+
+
+def phase_fill():
+    out = {"max_abs_err": 0.0}
+    corpora = {}
+    for name, (algo, scen, n_jobs, hosts) in FILL_CELLS.items():
+        t0 = time.perf_counter()
+        corpora[name] = vf.contention_snapshots(
+            algo, scen, n_jobs=n_jobs, hosts_per_pod=hosts, limit=FILL_LIMIT)
+        emit(phase="fill", corpus=name, captured=len(corpora[name]),
+             capture_host_s=time.perf_counter() - t0)
+    corpora["degenerate"] = FILL_DEGENERATE
+    for name, snaps in corpora.items():
+        ref = vf.batched_fill_reference(snaps)          # scalar, on the CPU
+        p, args = fill_args(snaps)
+        rates, dt = fk.fill_rates_dt(*args)
+        p_rates, p_dt = fk.fill_rates_dt_ref(*args)
+        torch.cuda.synchronize()
+        plain_equal = torch.equal(rates, p_rates) and torch.equal(dt, p_dt)
+        ref_equal = (np.array_equal(rates.cpu().numpy(), ref["rates"])
+                     and np.array_equal(dt.cpu().numpy(), ref["dt_next"]))
+        err = float((rates - p_rates).abs().max())
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        S, C, L = p.members.shape
+        line = dict(phase="fill", corpus=name, problems=S, classes=C,
+                    links=L, class_floor=FILL_FLOORS["classes"],
+                    link_floor=FILL_FLOORS["links"],
+                    beyond_floors=[C > FILL_FLOORS["classes"],
+                                   L > FILL_FLOORS["links"]],
+                    max_abs_err=err, bit_equal_plain=plain_equal,
+                    bit_equal_reference=ref_equal)
+        check(plain_equal and ref_equal, f"fill kernel on {name}: not "
+                                         f"bit-equal to its plain version "
+                                         f"and the scalar reference")
+        # control: every link capacity and every class cap one ulp up (a
+        # rate is a share of some link's capacity or a class's cap) must
+        # move some rate or dt, and the comparison must see it
+        inf = torch.tensor(float("inf"), dtype=torch.float64, device=DEV)
+        caps, members, n, fcap, cap_rank, remaining = args
+        c_rates, c_dt = fk.fill_rates_dt(
+            torch.nextafter(caps, inf), members, n,
+            torch.nextafter(fcap, inf), cap_rank, remaining)
+        line["control_caught"] = not (torch.equal(c_rates, rates)
+                                      and torch.equal(c_dt, dt))
+        check(line["control_caught"], f"fill control on {name}: one ulp "
+                                      f"of every capacity moved nothing")
+        emit(**line)
+    check(max(len(s["classes"]) for s in corpora["pods16_fifo_oversub24"])
+          > FILL_FLOORS["classes"], "no fill corpus passed the class floor")
+    # the timed batches: warm eager launches by CUDA events (ms, the host's
+    # cost a launch beside it) and in a CUDA graph (device_ms), the plain
+    # version, and the solver a call: pack, copy in, launch, copy out,
+    # wait. The contended batch is the kernels line's; the uncontended
+    # one, where every class is capped, takes one round a class
+    for name, cell in FILL_TIMED.items():
+        sel = [s for s in corpora[cell]
+               if len(s["classes"]) > lockstep.INLINE_C][:FILL_BATCH]
+        check(len(sel) == FILL_BATCH, f"too few {cell} fill problems")
+        p, args = fill_args(sel)
+        S, C, L = p.members.shape
+        res = torch.empty(S * C + 2 * S, dtype=torch.float64, device=DEV)
+        ms, host_us = time_ms(lambda: fk.launch(*args, res), FILL_ITERS)
+        device_ms = graph_ms(lambda: fk.launch(*args, res), 20, 10)
+        plain_ms, plain_host_us = time_ms(
+            lambda: fk.fill_rates_dt_ref(*args), 20)
+        probs = [fill_problem(s) for s in sel]
+        solver = vf.BatchedFillSolver()
+        solve_s = host_runs(lambda: solver.solve(probs), FILL_ITERS)
+        nbytes, ops, rounds = fill_work(args)
+        bound, bound_by = least_ms(nbytes, ops, FP64_FLOP_PER_S)
+        out[name] = dict(
+            corpus=cell, shape=[S, C, L], ms=ms, host_us=host_us,
+            device_ms=device_ms, plain_ms=plain_ms,
+            plain_host_us=plain_host_us,
+            solver_call_ms=statistics.median(solve_s) * 1e3, bytes=nbytes,
+            ops=ops, rounds=rounds, bound_ms=bound, bound_by=bound_by)
+        emit(phase="fill", timed=name, iters=FILL_ITERS, **out[name],
+             library="none: no PyTorch call computes a progressive fill")
+    return out
+
+
+# ------------------------------------------------------------- lockstep --
+def phase_lockstep():
+    """The lockstep gate matrix (480 cells) on the card, batched through the
+    fill kernel, against the scalar inline path in the same process; the
+    fill kernel's launch count is read around the run."""
+    fk.fill_rates_dt.launches = 0
+    r = lockstep.run_gate(lockstep.GATE_SEEDS, device=DEV, profile=True)
+    launches = fk.fill_rates_dt.launches
+    bench = json.loads((Path(__file__).resolve().parent
+                        / "BENCH_sweep.json").read_text())
+    want_sha = bench["lockstep"]["aggregate_sha256"]
+    b = r["batched"]
+    emit(phase="lockstep", cells=r["cells"], device=r["device"],
+         batched=b, scalar=r["scalar"], deferred=r["deferred"],
+         profile=r["profile"], launches=launches,
+         cells_equal=r["cells_equal"],
+         cells_differing=r["cells_differing"],
+         deferred_equal=r["deferred_equal"],
+         aggregate_equal=r["aggregate_equal"],
+         aggregate_sha256=r["aggregate_sha256"],
+         bench_sha256=want_sha)
+    check(r["cells_equal"] and r["aggregate_equal"] and r["deferred_equal"]
+          and r["profile"]["equal"],
+          "lockstep on the card differs from the scalar path")
+    check(r["aggregate_sha256"] == want_sha
+          and r["scalar_aggregate_sha256"] == want_sha,
+          "lockstep aggregate sha differs from BENCH_sweep.json's")
+    want = b["batches"] + r["profile"]["batches"]
+    check(launches == want and b["batches"] > 0,
+          f"fill kernel launches {launches} != batches {want}")
+    return r, launches
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -829,11 +1029,12 @@ def graph_ms(fn, calls: int, replays: int) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
-def least_ms(nbytes, flops):
+def least_ms(nbytes, flops, flop_per_s=BF16_FLOP_PER_S):
     """(least time in ms, what bounds it): bytes over the HBM rate or
-    flops over the bf16 tensor-core peak, whichever is larger."""
+    flops over the peak (by default bf16 on the tensor cores), whichever
+    is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -1573,7 +1774,8 @@ def main() -> None:
          libraries=[p.name for p in libs], ptxas=ptxas)
 
     done = {}
-    runs = {"mapreduce": phase_mapreduce, "kernel": phase_kernel,
+    runs = {"mapreduce": phase_mapreduce, "fill": phase_fill,
+            "lockstep": phase_lockstep, "kernel": phase_kernel,
             "wiring": phase_wiring,
             "serve": phase_serve, "times": phase_times, "grad": phase_grad,
             "train_wiring": phase_train_wiring, "train": phase_train}
@@ -1585,7 +1787,8 @@ def main() -> None:
 
     print(smi, flush=True)
     emit(kernels=kernels_line(done["kernel"], *done["serve"], done["times"],
-                              *done["train"]))
+                              *done["train"])
+         + [fill_entry(done["fill"], *done["lockstep"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})
@@ -1644,6 +1847,38 @@ def kernels_line(errs, launches, variants, per, launches_train, profiles):
             for arch, prof in profiles.items() if launches_train[arch][name]}
     return [flash, gla]
 
+
+def fill_entry(fill, gate, launches):
+    """The fill kernel in the kernels line: ms and plain_ms (eager, CUDA
+    events), device_ms (in a CUDA graph) and bound_ms of one call on the
+    contended batch of 64 gate-point problems, the uncontended batch's
+    beside them; its launches on the lockstep gate runs, the main path
+    (the full matrix and the profiled seeds)."""
+    c = fill["contended"]
+    keys = ("corpus", "shape", "ms", "host_us", "device_ms", "plain_ms",
+            "plain_host_us", "solver_call_ms", "bytes", "ops", "rounds",
+            "bound_ms")
+    return {
+        "name": "fill", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fill.cu",
+        "replaces": "src/repro/sweep/vmap_fill.py:182",
+        "launches": launches, "max_abs_err": fill["max_abs_err"],
+        "ms": c["ms"], "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": None,
+        "library": "none: no PyTorch call computes a progressive fill",
+        "device_ms": c["device_ms"],
+        "per_call": {name: {k: fill[name][k] for k in keys}
+                     for name in FILL_TIMED},
+        "main_path": {"batches": gate["batched"]["batches"],
+                      "profiled_batches": gate["profile"]["batches"],
+                      "per_batch_split": gate["profile"]["per_batch"],
+                      "hold_short": gate["profile"]["hold_short"],
+                      "fill_s": gate["batched"]["fill_s"],
+                      "wall_s": gate["batched"]["wall_s"],
+                      "scalar_fill_s": gate["scalar"]["fill_s"],
+                      "scalar_wall_s": gate["scalar"]["wall_s"]},
+    }
 
 if __name__ == "__main__":
     main()

@@ -94,22 +94,25 @@ def load(name: str,
          ) -> ctypes.CDLL:
     """The built library for ``csrc/<name>.cu``, building it if stale.
 
-    The C signatures are set once, when the library is first loaded:
-    ``signatures`` maps a function's name to (restype, argtypes), and every
-    library's ``repro_cuda_error_string`` is set here too."""
+    ``signatures`` maps a function's name to (restype, argtypes); each is
+    set on the first call that names it (a library loaded earlier without
+    it gets it then: ctypes would pass an unset pointer argument as a
+    32-bit int), and every library's ``repro_cuda_error_string`` is set
+    at first load."""
     lib = _loaded.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             _finish(name, *_start(name))
         lib = ctypes.CDLL(str(path))
-        sigs = {"repro_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
-                **(signatures or {})}
-        for fn_name, (restype, argtypes) in sigs.items():
-            fn = getattr(lib, fn_name)
+        fn = lib.repro_cuda_error_string
+        fn.restype, fn.argtypes = ctypes.c_char_p, [ctypes.c_int]
+        _loaded[name] = lib
+    for fn_name, (restype, argtypes) in (signatures or {}).items():
+        fn = getattr(lib, fn_name)
+        if fn.argtypes is None:
             fn.restype = restype
             fn.argtypes = list(argtypes)
-        _loaded[name] = lib
     return lib
 
 

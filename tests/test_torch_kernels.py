@@ -243,19 +243,19 @@ def test_wrapper_alignment_rule():
 
 def test_build_all_picks_up_every_source_of_the_package(tmp_path,
                                                         monkeypatch):
-    """The real csrc/ holds both kernels; build_all compiles each with its
-    own nvcc (a fake one here) into the build directory."""
-    assert build.sources() == ["flash_attention", "gla_scan"]
+    """The real csrc/ holds the three kernels; build_all compiles each
+    with its own nvcc (a fake one here) into the build directory."""
+    assert build.sources() == ["fill", "flash_attention", "gla_scan"]
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
     calls = tmp_path / "calls"
     bindir = _fake_nvcc(tmp_path, f'echo "$out" >> {calls}; echo lib > "$out"')
     monkeypatch.setenv("PATH", f"{bindir}:/usr/bin:/bin")
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     libs = build.build_all()
-    assert [p.name.split("-")[0] for p in libs] == ["libflash_attention",
-                                                     "libgla_scan"]
+    assert [p.name.split("-")[0] for p in libs] == [
+        "libfill", "libflash_attention", "libgla_scan"]
     assert all(p.parent == build.BUILD_DIR for p in libs)
-    assert len(calls.read_text().split()) == 2
+    assert len(calls.read_text().split()) == 3
 
 
 def _gla_args(B=1, T=8, H=2, K=16, V=16, dtype=torch.float32):
