@@ -11,6 +11,14 @@ Phases, each failing the run with a non-zero exit:
                of each corpus kind (equal keys and counts, bit-equal FP),
                then 4 shards of one 128 MiB HDFS block per kind: FP mean
                and std, tokens/s, the paper's observations
+  fill       - the batched progressive fill kernel's two variants (reg,
+               the chosen one, and smem, the first design) against its
+               plain version on the card and the scalar reference on the
+               CPU, bit for bit, on fill problems captured from the
+               simulator and on boundary corpora made from a seed; both
+               variants timed in turns on two batches of 64 problems
+  lockstep   - the scheduler's lockstep sweep (480 cells) through the fill
+               kernel against the scalar inline path; launches by variant
   3. kernel  - flash_attention (each case on the kernel the wrapper
                chooses, tc / split / simt; split at several n_split; the
                simt kernel also at the bf16 serving shapes) and gla_scan
@@ -362,6 +370,72 @@ FILL_DEGENERATE = [
 ]
 
 
+# boundary corpora, made from a seed: (C classes, L links) at the edges of
+# the reg kernel's templates (64 classes a word, 32 links a lane) and at its
+# largest shape
+FILL_BOUNDARY_C = (63, 64, 65, 129)
+FILL_BOUNDARY_L = (31, 32, 33, 65)
+FILL_BOUNDARY_TOP = (256, 128)
+
+
+def boundary_snaps(C, L, seed):
+    """Four snapshots padded to (C, L) in one batch: random classes of 1-3
+    links; one where class 0 crosses every link and every class crosses
+    link 0; one of equal link capacities and equal class caps (ties); and a
+    padded row of about half the classes and links. Caps of about half the
+    classes fall below their links' shares, so both cap and link rounds
+    run."""
+    rng = np.random.default_rng(seed)
+
+    def snap(nc, nl, full=False, ties=False):
+        caps = np.full(nl, 60.0) if ties else rng.uniform(5.0, 100.0, nl)
+        classes = []
+        for c in range(nc):
+            k = int(rng.integers(1, min(3, nl) + 1))
+            path = set(rng.choice(nl, size=k, replace=False).tolist())
+            if full:
+                path = set(range(nl)) if c == 0 else path | {0}
+            cap = (3.0 if ties else float(rng.uniform(0.2, 8.0))
+                   if rng.random() < 0.5 else 1000.0)
+            vdone = float(rng.uniform(0.0, 5.0))
+            target = (None if rng.random() < 0.2
+                      else vdone + float(rng.uniform(1.0, 50.0)))
+            classes.append(([["l", i] for i in sorted(path)], cap,
+                            int(rng.integers(1, 5)), vdone, target))
+        return _snap([["l", i, float(cap)] for i, cap in enumerate(caps)],
+                     *classes)
+
+    return [snap(C, L), snap(C, L, full=True), snap(C, L, ties=True),
+            snap(C // 2 + 1, L // 2 + 1)]
+
+
+def fill_boundary_corpora(seed=18):
+    """name -> snapshots, for every pair of FILL_BOUNDARY_C x
+    FILL_BOUNDARY_L and for FILL_BOUNDARY_TOP."""
+    shapes = [*itertools.product(FILL_BOUNDARY_C, FILL_BOUNDARY_L),
+              FILL_BOUNDARY_TOP]
+    return {f"boundary_C{C}_L{L}": boundary_snaps(C, L, seed + i)
+            for i, (C, L) in enumerate(shapes)}
+
+
+def tied_ranks(cap_rank, n, seed):
+    """Ranks that keep each row's order of (cap_rank, index) over its live
+    classes (n > 0) but are not integers and often tie: a class whose index
+    is above the one before it in that order may take its rank (the lower
+    index wins the tie). The fill, and so its answers, do not change."""
+    rng = np.random.default_rng(seed)
+    out = np.array(cap_rank, dtype=np.float64)
+    for r in range(out.shape[0]):
+        live = np.flatnonzero(n[r] > 0)
+        order = live[np.lexsort((live, cap_rank[r, live]))]
+        v = 0.5
+        for i, c in enumerate(order):
+            if i and not (c > order[i - 1] and rng.random() < 0.5):
+                v += 0.37
+            out[r, c] = v
+    return out
+
+
 def fill_args(snaps):
     """The kernel's inputs for a batch of snapshots, on the card."""
     p = vf.PackedProblems(snaps)
@@ -407,70 +481,112 @@ def phase_fill():
         emit(phase="fill", corpus=name, captured=len(corpora[name]),
              capture_host_s=time.perf_counter() - t0)
     corpora["degenerate"] = FILL_DEGENERATE
+    corpora.update(fill_boundary_corpora())
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=DEV)
     for name, snaps in corpora.items():
         ref = vf.batched_fill_reference(snaps)          # scalar, on the CPU
         p, args = fill_args(snaps)
-        rates, dt = fk.fill_rates_dt(*args)
-        p_rates, p_dt = fk.fill_rates_dt_ref(*args)
-        torch.cuda.synchronize()
-        plain_equal = torch.equal(rates, p_rates) and torch.equal(dt, p_dt)
-        ref_equal = (np.array_equal(rates.cpu().numpy(), ref["rates"])
-                     and np.array_equal(dt.cpu().numpy(), ref["dt_next"]))
-        err = float((rates - p_rates).abs().max())
-        out["max_abs_err"] = max(out["max_abs_err"], err)
         S, C, L = p.members.shape
-        line = dict(phase="fill", corpus=name, problems=S, classes=C,
-                    links=L, class_floor=FILL_FLOORS["classes"],
-                    link_floor=FILL_FLOORS["links"],
-                    beyond_floors=[C > FILL_FLOORS["classes"],
-                                   L > FILL_FLOORS["links"]],
-                    max_abs_err=err, bit_equal_plain=plain_equal,
-                    bit_equal_reference=ref_equal)
-        check(plain_equal and ref_equal, f"fill kernel on {name}: not "
-                                         f"bit-equal to its plain version "
-                                         f"and the scalar reference")
-        # control: every link capacity and every class cap one ulp up (a
-        # rate is a share of some link's capacity or a class's cap) must
-        # move some rate or dt, and the comparison must see it
-        inf = torch.tensor(float("inf"), dtype=torch.float64, device=DEV)
+        # the boundary corpora also run with ranks that tie and are not
+        # integers but keep the order, so the reference's answers hold; and
+        # with n halved, which the reg kernel sums class by class (not over
+        # bit planes), held to the plain version alone
         caps, members, n, fcap, cap_rank, remaining = args
-        c_rates, c_dt = fk.fill_rates_dt(
-            torch.nextafter(caps, inf), members, n,
-            torch.nextafter(fcap, inf), cap_rank, remaining)
-        line["control_caught"] = not (torch.equal(c_rates, rates)
-                                      and torch.equal(c_dt, dt))
-        check(line["control_caught"], f"fill control on {name}: one ulp "
-                                      f"of every capacity moved nothing")
-        emit(**line)
+        cases = {"packed": (n, cap_rank)}
+        if name.startswith("boundary"):
+            cases["tied"] = (n, torch.from_numpy(
+                tied_ranks(p.cap_rank, p.n, seed=7)).to(DEV))
+            cases["half_n"] = (n * 0.5, cap_rank)
+        for inputs, (n_in, rank_in) in cases.items():
+            a = (caps, members, n_in, fcap, rank_in, remaining)
+            p_rates, p_dt = fk.fill_rates_dt_ref(*a)
+            line = dict(phase="fill", corpus=name, inputs=inputs, problems=S,
+                        classes=C, links=L,
+                        class_floor=FILL_FLOORS["classes"],
+                        link_floor=FILL_FLOORS["links"],
+                        beyond_floors=[C > FILL_FLOORS["classes"],
+                                       L > FILL_FLOORS["links"]],
+                        chosen=fk.choose_variant(C, L))
+            for v in fk.VARIANTS:
+                rates, dt = fk.fill_rates_dt(*a, variant=v)
+                torch.cuda.synchronize()
+                plain_equal = (torch.equal(rates, p_rates)
+                               and torch.equal(dt, p_dt))
+                ref_equal = None if inputs == "half_n" else (
+                    np.array_equal(rates.cpu().numpy(), ref["rates"])
+                    and np.array_equal(dt.cpu().numpy(), ref["dt_next"]))
+                err = float((rates - p_rates).abs().max())
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                check(plain_equal and ref_equal is not False,
+                      f"fill kernel ({v}) on {name} ({inputs}): not "
+                      f"bit-equal to its plain version and the scalar "
+                      f"reference")
+                # control: every link capacity and every class cap one ulp
+                # up (a rate is a share of some link's capacity or a
+                # class's cap) must move some rate or dt, and the
+                # comparison must see it
+                c_rates, c_dt = fk.fill_rates_dt(
+                    torch.nextafter(caps, inf), members, n_in,
+                    torch.nextafter(fcap, inf), rank_in, remaining,
+                    variant=v)
+                caught = not (torch.equal(c_rates, rates)
+                              and torch.equal(c_dt, dt))
+                check(caught, f"fill control ({v}) on {name}: one ulp of "
+                              f"every capacity moved nothing")
+                line[v] = dict(max_abs_err=err, bit_equal_plain=plain_equal,
+                               bit_equal_reference=ref_equal,
+                               control_caught=caught)
+            emit(**line)
     check(max(len(s["classes"]) for s in corpora["pods16_fifo_oversub24"])
           > FILL_FLOORS["classes"], "no fill corpus passed the class floor")
     # the timed batches: warm eager launches by CUDA events (ms, the host's
-    # cost a launch beside it) and in a CUDA graph (device_ms), the plain
-    # version, and the solver a call: pack, copy in, launch, copy out,
-    # wait. The contended batch is the kernels line's; the uncontended
-    # one, where every class is capped, takes one round a class
+    # cost a launch beside it) and in a CUDA graph (device_ms), of the
+    # chosen kernel (reg) and the first design (smem_*) in turns, reg, smem,
+    # smem, reg, each the lesser of its two readings; the plain version;
+    # and the solver a call: pack, copy in, launch, copy out, wait. The
+    # contended batch is the kernels line's; the uncontended one, where
+    # every class is capped, takes one round a class. The batch takes as
+    # long as its longest problem, so us_per_round is device_ms over the
+    # most rounds any of its problems takes
     for name, cell in FILL_TIMED.items():
         sel = [s for s in corpora[cell]
                if len(s["classes"]) > lockstep.INLINE_C][:FILL_BATCH]
         check(len(sel) == FILL_BATCH, f"too few {cell} fill problems")
         p, args = fill_args(sel)
         S, C, L = p.members.shape
+        chosen = fk.choose_variant(C, L)
         res = torch.empty(S * C + 2 * S, dtype=torch.float64, device=DEV)
-        ms, host_us = time_ms(lambda: fk.launch(*args, res), FILL_ITERS)
-        device_ms = graph_ms(lambda: fk.launch(*args, res), 20, 10)
+        runs = {v: {"ms": [], "host_us": [], "device_ms": []}
+                for v in fk.VARIANTS}
+        for v in ("reg", "smem", "smem", "reg"):
+            def fn(v=v):
+                fk.launch(*args, res, variant=v)
+            ms, host_us = time_ms(fn, FILL_ITERS)
+            runs[v]["ms"].append(ms)
+            runs[v]["host_us"].append(host_us)
+            runs[v]["device_ms"].append(graph_ms(fn, 20, 10))
+        times = {}
+        for v, got in runs.items():
+            prefix = "" if v == chosen else f"{v}_"
+            for key, vals in got.items():
+                times[prefix + key] = min(vals)
+                times[prefix + key + "_runs"] = vals
         plain_ms, plain_host_us = time_ms(
             lambda: fk.fill_rates_dt_ref(*args), 20)
         probs = [fill_problem(s) for s in sel]
         solver = vf.BatchedFillSolver()
         solve_s = host_runs(lambda: solver.solve(probs), FILL_ITERS)
         nbytes, ops, rounds = fill_work(args)
+        max_rounds = int(fk.fill_rounds(*args[:5]).max())
         bound, bound_by = least_ms(nbytes, ops, FP64_FLOP_PER_S)
         out[name] = dict(
-            corpus=cell, shape=[S, C, L], ms=ms, host_us=host_us,
-            device_ms=device_ms, plain_ms=plain_ms,
-            plain_host_us=plain_host_us,
+            corpus=cell, shape=[S, C, L], variant=chosen, **times,
+            us_per_round=times["device_ms"] * 1e3 / max_rounds,
+            smem_us_per_round=times["smem_device_ms"] * 1e3 / max_rounds,
+            plain_ms=plain_ms, plain_host_us=plain_host_us,
             solver_call_ms=statistics.median(solve_s) * 1e3, bytes=nbytes,
-            ops=ops, rounds=rounds, bound_ms=bound, bound_by=bound_by)
+            ops=ops, rounds=rounds, max_rounds=max_rounds, bound_ms=bound,
+            bound_by=bound_by)
         emit(phase="fill", timed=name, iters=FILL_ITERS, **out[name],
              library="none: no PyTorch call computes a progressive fill")
     return out
@@ -480,10 +596,12 @@ def phase_fill():
 def phase_lockstep():
     """The lockstep gate matrix (480 cells) on the card, batched through the
     fill kernel, against the scalar inline path in the same process; the
-    fill kernel's launch count is read around the run."""
+    fill kernel's launch counts are read around the run."""
     fk.fill_rates_dt.launches = 0
+    fk.fill_rates_dt.launches_by_variant = {v: 0 for v in fk.VARIANTS}
     r = lockstep.run_gate(lockstep.GATE_SEEDS, device=DEV, profile=True)
     launches = fk.fill_rates_dt.launches
+    by_variant = dict(fk.fill_rates_dt.launches_by_variant)
     bench = json.loads((Path(__file__).resolve().parent
                         / "BENCH_sweep.json").read_text())
     want_sha = bench["lockstep"]["aggregate_sha256"]
@@ -491,6 +609,7 @@ def phase_lockstep():
     emit(phase="lockstep", cells=r["cells"], device=r["device"],
          batched=b, scalar=r["scalar"], deferred=r["deferred"],
          profile=r["profile"], launches=launches,
+         launches_by_variant=by_variant,
          cells_equal=r["cells_equal"],
          cells_differing=r["cells_differing"],
          deferred_equal=r["deferred_equal"],
@@ -506,7 +625,9 @@ def phase_lockstep():
     want = b["batches"] + r["profile"]["batches"]
     check(launches == want and b["batches"] > 0,
           f"fill kernel launches {launches} != batches {want}")
-    return r, launches
+    check(by_variant == {"reg": launches, "smem": 0},
+          f"fill launches on the gate runs not all reg: {by_variant}")
+    return r, launches, by_variant
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -1848,15 +1969,18 @@ def kernels_line(errs, launches, variants, per, launches_train, profiles):
     return [flash, gla]
 
 
-def fill_entry(fill, gate, launches):
+def fill_entry(fill, gate, launches, by_variant):
     """The fill kernel in the kernels line: ms and plain_ms (eager, CUDA
     events), device_ms (in a CUDA graph) and bound_ms of one call on the
-    contended batch of 64 gate-point problems, the uncontended batch's
-    beside them; its launches on the lockstep gate runs, the main path
-    (the full matrix and the profiled seeds)."""
+    contended batch of 64 gate-point problems, the chosen kernel's (reg),
+    the first design's (smem_*) beside them, and the uncontended batch's;
+    its launches on the lockstep gate runs, the main path (the full matrix
+    and the profiled seeds), by variant."""
     c = fill["contended"]
-    keys = ("corpus", "shape", "ms", "host_us", "device_ms", "plain_ms",
-            "plain_host_us", "solver_call_ms", "bytes", "ops", "rounds",
+    keys = ("corpus", "shape", "variant", "ms", "host_us", "device_ms",
+            "smem_ms", "smem_host_us", "smem_device_ms", "us_per_round",
+            "smem_us_per_round", "plain_ms", "plain_host_us",
+            "solver_call_ms", "bytes", "ops", "rounds", "max_rounds",
             "bound_ms")
     return {
         "name": "fill", "route": "cuda",
@@ -1867,7 +1991,9 @@ def fill_entry(fill, gate, launches):
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": None,
         "library": "none: no PyTorch call computes a progressive fill",
-        "device_ms": c["device_ms"],
+        "variant": c["variant"], "launches_by_variant": by_variant,
+        "device_ms": c["device_ms"], "smem_ms": c["smem_ms"],
+        "smem_device_ms": c["smem_device_ms"],
         "per_call": {name: {k: fill[name][k] for k in keys}
                      for name in FILL_TIMED},
         "main_path": {"batches": gate["batched"]["batches"],
@@ -1879,6 +2005,7 @@ def fill_entry(fill, gate, launches):
                       "scalar_fill_s": gate["scalar"]["fill_s"],
                       "scalar_wall_s": gate["scalar"]["wall_s"]},
     }
+
 
 if __name__ == "__main__":
     main()

@@ -18,22 +18,30 @@ their own. So both are bit-equal to the scalar allocator, not merely close
 rounds a shared link's debit differently).
 
 On a CPU tensor the wrapper runs ``fill_rates_dt_ref``; on a CUDA tensor it
-launches ``csrc/fill.cu`` or raises.
+launches one of the two kernels of ``csrc/fill.cu`` or raises: ``"reg"``,
+its state in registers, for up to ``REG_MAX_C`` classes and ``REG_MAX_L``
+links, and ``"smem"``, the first design, for any shape
+(``choose_variant``).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
 _F64 = torch.float64
+VARIANTS = ("reg", "smem")
+_VARIANT_CODE = {"smem": 0, "reg": 1}
+#: the largest shape the register kernel's templates hold: 4 words of 64
+#: classes, 4 links a lane
+REG_MAX_C, REG_MAX_L = 256, 128
 # repro_fill_rates_dt(caps, members, n, fcap, cap_rank, remaining, rates, dt,
-#                     status, S, C, L, device, stream)
+#                     status, S, C, L, variant, device, stream)
 _SIGNATURES = {"repro_fill_rates_dt": (
-    ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+    ctypes.c_int, [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
     + [ctypes.c_void_p])}
 
 
@@ -108,6 +116,20 @@ def _fill(caps, members, n, fcap, cap_rank, remaining):
     return rates, etas.min(dim=1).values, rounds
 
 
+def choose_variant(C: int, L: int) -> str:
+    """The kernel a call goes to: ``"reg"`` where its templates hold the
+    shape (C classes, L links), else ``"smem"``."""
+    return "reg" if C <= REG_MAX_C and L <= REG_MAX_L else "smem"
+
+
+def _check_variant(variant: str, C: int, L: int) -> None:
+    if variant not in _VARIANT_CODE:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    if variant == "reg" and choose_variant(C, L) != "reg":
+        raise ValueError(f"the reg kernel holds at most {REG_MAX_C} classes "
+                         f"and {REG_MAX_L} links, got C={C} L={L}")
+
+
 def _check(ts) -> None:
     caps, members, n, fcap, cap_rank, remaining = ts
     if len({t.device for t in ts}) != 1:
@@ -138,15 +160,22 @@ def _check(ts) -> None:
 
 def launch(caps: torch.Tensor, members: torch.Tensor, n: torch.Tensor,
            fcap: torch.Tensor, cap_rank: torch.Tensor,
-           remaining: torch.Tensor, out: torch.Tensor) -> None:
+           remaining: torch.Tensor, out: torch.Tensor,
+           variant: Optional[str] = None) -> None:
     """Launch the kernel on the current stream without waiting for it:
     ``out`` (S * C + 2 S float64, on the card) receives rates (S, C), then
     dt (S,), then a status (S,) that is 1 for a problem the kernel could not
     solve. The caller reads the status after its copy back
-    (``raise_on_status``)."""
+    (``raise_on_status``). ``variant`` (default ``choose_variant``) pins
+    the kernel, for measurements and checks."""
+    S, C, L = members.shape
+    if variant is not None:
+        _check_variant(variant, C, L)
+    variant = variant or choose_variant(C, L)
+    if caps.device.type != "cuda":
+        raise ValueError(f"no fill kernel for device {caps.device}")
     ts = (caps, members, n, fcap, cap_rank, remaining)
     _check(ts)
-    S, C, L = members.shape
     if out.dtype != _F64 or out.numel() != S * C + 2 * S or \
             out.device != caps.device or not out.is_contiguous():
         raise ValueError("out must be a contiguous float64 tensor of "
@@ -158,9 +187,10 @@ def launch(caps: torch.Tensor, members: torch.Tensor, n: torch.Tensor,
         caps.data_ptr(), members.data_ptr(), n.data_ptr(), fcap.data_ptr(),
         cap_rank.data_ptr(), remaining.data_ptr(), base,
         base + 8 * S * C, base + 8 * (S * C + S), S, C, L,
-        caps.device.index or 0, stream)
-    build.raise_on_error(lib, err, "fill")
+        _VARIANT_CODE[variant], caps.device.index or 0, stream)
+    build.raise_on_error(lib, err, f"fill ({variant})")
     fill_rates_dt.launches += 1
+    fill_rates_dt.launches_by_variant[variant] += 1
 
 
 def raise_on_status(status) -> None:
@@ -173,19 +203,21 @@ def raise_on_status(status) -> None:
 
 def fill_rates_dt(caps: torch.Tensor, members: torch.Tensor,
                   n: torch.Tensor, fcap: torch.Tensor,
-                  cap_rank: torch.Tensor, remaining: torch.Tensor
+                  cap_rank: torch.Tensor, remaining: torch.Tensor,
+                  variant: Optional[str] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(rates (S, C), dt (S,)) for S padded fill problems. On the card it
     waits for the kernel, to read its status."""
+    S, C, L = members.shape
+    if variant is not None:
+        _check_variant(variant, C, L)
     if caps.device.type == "cpu":
         return fill_rates_dt_ref(caps, members, n, fcap, cap_rank, remaining)
-    if caps.device.type != "cuda":
-        raise ValueError(f"no fill kernel for device {caps.device}")
-    S, C, _ = members.shape
     out = torch.empty(S * C + 2 * S, dtype=_F64, device=caps.device)
-    launch(caps, members, n, fcap, cap_rank, remaining, out)
+    launch(caps, members, n, fcap, cap_rank, remaining, out, variant)
     raise_on_status(out[S * C + S:].cpu())
     return out[:S * C].view(S, C), out[S * C:S * C + S]
 
 
 fill_rates_dt.launches = 0
+fill_rates_dt.launches_by_variant = {name: 0 for name in VARIANTS}
