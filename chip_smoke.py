@@ -19,6 +19,14 @@ Phases, each failing the run with a non-zero exit:
                variants timed in turns on two batches of 64 problems
   lockstep   - the scheduler's lockstep sweep (480 cells) through the fill
                kernel against the scalar inline path; launches by variant
+  scheduler  - the fleet, chaos, telemetry and reference-fabric layers held
+               to the committed anchors (the 25 golden trajectories with
+               telemetry off and on, fast vs reference fabric, the chaos
+               gate, the migration probe, the 320-cell elastic claim rows,
+               the trace probe), telemetry's overhead at 4096 hosts, the
+               paper's §6 comparison, and a mixed matrix through the
+               lockstep backend (fabric cells on the fill kernel, elastic
+               and chaos cells on the scalar fallback)
   3. kernel  - flash_attention (each case on the kernel the wrapper
                chooses, tc / split / simt; split at several n_split; the
                simt kernel also at the bf16 serving shapes) and gla_scan
@@ -66,6 +74,7 @@ kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
 """
 import dataclasses
+import gc
 import itertools
 import json
 import math
@@ -84,9 +93,15 @@ from torch.autograd import DeviceType
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import mapreduce as mr  # noqa: E402
+from repro_torch.chaos import ChaosConfig, ResponseConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.topology import VirtualCluster  # noqa: E402
+from repro_torch.core.joss import make_algorithm  # noqa: E402
+from repro_torch.core.topology import (ElasticLinks, HostId,  # noqa: E402
+                                       VirtualCluster)
 from repro_torch.data import JossDataPipeline, TokenStore  # noqa: E402
+from repro_torch.elastic import (BacklogThresholdScaler,  # noqa: E402
+                                 ChurnConfig, DurabilityConfig,
+                                 ElasticEngine, FixedFleet, MigrationConfig)
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import fill as fk  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -97,7 +112,14 @@ from repro_torch.models import (build_model, prefix_len,  # noqa: E402
                                 side_inputs)
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models.recurrence import gla_chunked  # noqa: E402
+from repro_torch.obs import TelemetryConfig  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
+from repro_torch.sim import experiment, golden  # noqa: E402
+from repro_torch.sim import workloads as wl  # noqa: E402
+from repro_torch.sim.cluster_sim import SimConfig, Simulator  # noqa: E402
+from repro_torch.sim.network import FabricConfig  # noqa: E402
+from repro_torch.sweep import (CellSpec, SweepEngine,  # noqa: E402
+                               aggregate_cells, matrix, run_cell)
 from repro_torch.sweep import lockstep  # noqa: E402
 from repro_torch.sweep import vmap_fill as vf  # noqa: E402
 from repro_torch.train import (OptConfig, TrainConfig, adamw_init,  # noqa: E402
@@ -628,6 +650,317 @@ def phase_lockstep():
     check(by_variant == {"reg": launches, "smem": 0},
           f"fill launches on the gate runs not all reg: {by_variant}")
     return r, launches, by_variant
+
+
+# ---------------------------------------------------------- scheduler --
+# The fleet, chaos and telemetry layers and the per-flow reference fabric
+# are host code: this phase holds them to the anchors committed beside the
+# JAX package (tests/golden/sim_trajectories.json and the BENCH_chaos,
+# BENCH_elastic and BENCH_obs files), each gate point restated from the
+# JSON it reads, and times the host work at the sizes users run.
+SCHED_ALGOS = ("joss-t", "joss-j", "fifo", "fair", "capacity")
+# bench_sweep's elastic claim matrix: 5 algorithms x 2 scenarios x 32
+# seeds on an 8 + 8 fleet, 40 jobs a cell
+SCHED_ELASTIC = dict(scenarios=("flaky", "spot"), seeds=32,
+                     fleet=(8, 8), n_jobs=40)
+SCHED_ELASTIC_METRICS = ("wtt", "work_lost_mb", "cost_dollars", "n_reexec")
+# bench_obs's overhead point: the 4096-host virtual cluster (4 pods of
+# 1024 dual-slot hosts, WAN 8x oversubscribed) with a 1536-job burst
+# backlog; best of SCHED_OVERHEAD_PAIRS interleaved off/on pairs
+SCHED_SCALE = dict(hosts_per_pod=(1024,) * 4, n_jobs=1536, slots=2,
+                   wan_oversub=8.0, algo="joss-t", seed=11)
+SCHED_OVERHEAD_PAIRS = 3
+
+
+def sched_e2e(allocator, variant, elastic_links=None):
+    """tests/test_fabric_fastpath.py's end-to-end case: 12 jobs on a 4 + 4
+    fleet with the fabric at WAN 8x, under one allocator."""
+    cluster = wl.make_cluster(
+        (4, 4), links=wl.fabric_links((4, 4), wan_oversub=8.0))
+    jobs = wl.small_workload(cluster, seed=11, n_jobs=12)
+    algo = sched_prep("joss-t", cluster)
+    cfg_kw, elastic = {}, None
+    if variant in ("churn", "churn+durability"):
+        dur = (DurabilityConfig(rereplicate=True, rerep_delay=5.0,
+                                checkpoint=True)
+               if variant == "churn+durability" else None)
+        elastic = ElasticEngine(
+            cluster, churn=ChurnConfig(seed=12, fail_rate=4.0,
+                                       rejoin_delay=60.0),
+            autoscaler=FixedFleet(), durability=dur)
+    elif variant == "speculative":
+        cfg_kw = dict(speculative=True, slow_hosts={HostId(0, 0): 4.0})
+    el = ElasticLinks(**elastic_links) if elastic_links else None
+    cfg = SimConfig(fabric=FabricConfig(allocator=allocator, elastic=el),
+                    **cfg_kw)
+    res = Simulator(cluster, algo, jobs, config=cfg, seed=11,
+                    elastic=elastic).run()
+    check(len(res.job_finish) == 12, f"fabric case {variant}: jobs lost")
+    return res
+
+
+def sched_prep(algo_name, cluster):
+    """The algorithm, its FP registry warmed by the profiling prelude."""
+    algo = make_algorithm(algo_name, cluster)
+    if hasattr(algo, "registry"):
+        for j in wl.profiling_prelude(cluster):
+            algo.registry.record(j, j.true_fp)
+    return algo
+
+
+def sched_chaos_probe(algo_name, detect, gate):
+    """bench_chaos's gate probe at the point BENCH_chaos.json stores."""
+    cluster = wl.make_cluster(tuple(gate["hosts_per_pod"]))
+    jobs = wl.small_workload(cluster, seed=gate["seed"],
+                             n_jobs=gate["n_jobs"])
+    algo = sched_prep(algo_name, cluster)
+    response = (ResponseConfig(grace=gate["grace"],
+                               quarantine_at=gate["quarantine_at"])
+                if detect else None)
+    cfg = SimConfig(chaos=ChaosConfig(seed=gate["chaos_seed"],
+                                      **gate["campaign"]),
+                    response=response)
+    res = Simulator(cluster, algo, jobs, config=cfg, seed=gate["seed"]).run()
+    check(len(res.job_finish) == len(jobs), f"chaos {algo_name}: jobs lost")
+    return res
+
+
+def sched_migration_probe(algo_name, migrate, probe):
+    """bench_migration's gate probe at the point BENCH_elastic.json
+    stores: every host 6x slow, heavy spot churn, a 30 s notice."""
+    hpp = tuple(probe["hosts_per_pod"])
+    cluster = wl.make_cluster(hpp)
+    jobs = wl.small_workload(cluster, seed=probe["seed"],
+                             n_jobs=probe["n_jobs"])
+    algo = sched_prep(algo_name, cluster)
+    slow = {HostId(p, i): probe["slow"]
+            for p, n in enumerate(hpp) for i in range(n)}
+    churn = ChurnConfig(seed=probe["seed"] + 1,
+                        spot_fraction=probe["spot_fraction"],
+                        spot_preempt_rate=probe["spot_preempt_rate"],
+                        preempt_notice=probe["notice"],
+                        expire_notice=probe["notice"])
+    eng = ElasticEngine(cluster, churn=churn, autoscaler=FixedFleet(),
+                        migration=MigrationConfig() if migrate else None)
+    res = Simulator(cluster, algo, jobs, config=SimConfig(slow_hosts=slow),
+                    seed=probe["seed"], elastic=eng).run()
+    check(len(res.job_finish) == len(jobs), f"migration {algo_name}: lost")
+    return res
+
+
+def sched_trace_probe(n_jobs, seed):
+    """bench_obs's trace probe: a churny elastic fleet (8 + 8 dual-slot
+    hosts) with a backlog-threshold autoscaler on a contended fabric."""
+    cluster = wl.make_cluster((8, 8), map_slots=2)
+    jobs = wl.small_workload(cluster, seed=seed, n_jobs=n_jobs)
+    cfg = SimConfig(fabric=FabricConfig(links=wl.fabric_links((8, 8))),
+                    telemetry=TelemetryConfig())
+    eng = ElasticEngine(
+        cluster,
+        churn=ChurnConfig(seed=5, fail_rate=0.5, rejoin_delay=90.0),
+        autoscaler=BacklogThresholdScaler(min_hosts=4))
+    return Simulator(cluster, make_algorithm("joss-t", cluster), jobs,
+                     config=cfg, seed=seed, elastic=eng).run()
+
+
+def sched_scale_run(telemetry):
+    """One run of the overhead point: (result, events/s of process time),
+    events being the submits and task completions, as bench_obs counts."""
+    p = SCHED_SCALE
+    hpp = p["hosts_per_pod"]
+    cluster = wl.make_cluster(hpp, links=wl.fabric_links(
+        hpp, wan_oversub=p["wan_oversub"]), map_slots=p["slots"],
+        reduce_slots=p["slots"])
+    jobs = wl.small_workload(cluster, seed=p["seed"], n_jobs=p["n_jobs"])
+    for j in jobs:
+        j.submit_time = 0.0
+    algo = sched_prep(p["algo"], cluster)
+    cfg = SimConfig(fabric=FabricConfig(log_limit=0), telemetry=telemetry)
+    n_events = p["n_jobs"] + sum(j.m + len(j.reduce_tasks) for j in jobs)
+    t0 = time.process_time()
+    res = Simulator(cluster, algo, jobs, config=cfg, seed=p["seed"]).run()
+    dt = time.process_time() - t0
+    check(len(res.job_finish) == p["n_jobs"], "scale point: jobs lost")
+    return res, n_events / dt
+
+
+def phase_scheduler():
+    """The scheduler's fleet, chaos, telemetry and reference-fabric layers
+    held to the committed anchors, the paper's §6 comparison, and a mixed
+    matrix through the lockstep backend, whose fabric cells batch through
+    the fill kernel on the card."""
+    root = Path(__file__).resolve().parent
+    bench = {k: json.loads((root / f"BENCH_{k}.json").read_text())
+             for k in ("chaos", "elastic", "obs")}
+    out = {}
+
+    # the 25 golden trajectories, telemetry off and on
+    want = golden.load_golden()
+    t0 = time.perf_counter()
+    bad = [(golden.case_key(a, v), tel is not None)
+           for a, v in golden.golden_cases()
+           for tel in (None, TelemetryConfig())
+           if golden.signature_hash(golden.run_case(a, v, telemetry=tel))
+           != want[golden.case_key(a, v)]]
+    out["golden_s"] = time.perf_counter() - t0
+    emit(phase="scheduler", part="golden", cases=len(want),
+         runs=2 * len(want), seconds=out["golden_s"], differing=bad)
+    check(len(want) == 25 and not bad, f"golden hashes differ: {bad}")
+
+    # the fast fabric against the per-flow reference, bit for bit
+    t0 = time.perf_counter()
+    cases = [(v, None) for v in ("static", "churn", "churn+durability",
+                                 "speculative")]
+    cases.append(("churn+durability", dict(host_up=220.0, host_down=220.0,
+                                           wan_per_host=35.0)))
+    fabric_eq = {}
+    for v, el in cases:
+        fast, ref = (sched_e2e(a, v, el) for a in ("fast", "reference"))
+        fabric_eq[v + ("+elastic_links" if el else "")] = (
+            bool(fast.fabric.completion_log)
+            and fast.fabric.completion_log == ref.fabric.completion_log
+            and golden.full_signature(fast) == golden.full_signature(ref))
+    emit(phase="scheduler", part="fabric_reference", equal=fabric_eq,
+         seconds=time.perf_counter() - t0)
+    check(all(fabric_eq.values()), f"reference fabric differs: {fabric_eq}")
+
+    # the chaos gate of BENCH_chaos.json, detection on and off
+    t0 = time.perf_counter()
+    stored = bench["chaos"]
+    rows, sig = {}, {}
+    for a in SCHED_ALGOS:
+        off = sched_chaos_probe(a, False, stored["gate"])
+        on = sched_chaos_probe(a, True, stored["gate"])
+        rows[a] = dict(off_wtt=off.wtt, off_reexec=off.n_reexec, wtt=on.wtt,
+                       reexec=on.n_reexec, n_timeouts=on.n_timeouts,
+                       n_quarantined=on.n_quarantined,
+                       n_surfaced=on.n_surfaced)
+        if a == "joss-t":
+            sig = dict(chaos_signature=on.chaos.signature(),
+                       response_signature=on.response.signature())
+    chaos_eq = {a: rows[a] == stored["algos"][a] for a in SCHED_ALGOS}
+    sig_eq = all(sig[k] == stored[k] for k in sig)
+    emit(phase="scheduler", part="chaos_gate", rows=rows, equal=chaos_eq,
+         signatures_equal=sig_eq, seconds=time.perf_counter() - t0)
+    check(all(chaos_eq.values()) and sig_eq,
+          f"chaos gate differs from BENCH_chaos.json: {chaos_eq} {sig_eq}")
+
+    # the migration probe of BENCH_elastic.json
+    t0 = time.perf_counter()
+    stored = bench["elastic"]["migration"]
+    rows = {}
+    for a in SCHED_ALGOS:
+        base = sched_migration_probe(a, False, stored["probe"])
+        mig = sched_migration_probe(a, True, stored["probe"])
+        rows[a] = dict(base_lost=base.work_lost_mb, base_reexec=base.n_reexec,
+                       lost=mig.work_lost_mb, reexec=mig.n_reexec,
+                       n_migrated=mig.n_migrated)
+        if a == "joss-t":
+            mig_sig = mig.migration.signature()
+    mig_eq = {a: rows[a] == stored["algos"][a] for a in SCHED_ALGOS}
+    emit(phase="scheduler", part="migration_probe", rows=rows, equal=mig_eq,
+         signature_equal=mig_sig == stored["signature"],
+         seconds=time.perf_counter() - t0)
+    check(all(mig_eq.values()) and mig_sig == stored["signature"],
+          f"migration probe differs from BENCH_elastic.json: {mig_eq}")
+
+    # the elastic claim matrix (320 cells) against its committed rows
+    e = SCHED_ELASTIC
+    specs = matrix("elastic_churn", SCHED_ALGOS, e["scenarios"], e["seeds"],
+                   fleet=e["fleet"], n_jobs=e["n_jobs"])
+    results, st = SweepEngine().run(specs)
+    claim = json.loads(json.dumps(aggregate_cells(
+        results, metrics=SCHED_ELASTIC_METRICS)))
+    stored = bench["elastic"]["claims"]
+    claims_eq = claim == stored["rows"] and e["seeds"] == stored["n_seeds"]
+    out["elastic_s"] = st.wall_s
+    emit(phase="scheduler", part="elastic_matrix", cells=st.n_cells,
+         rows=len(claim), equal=claims_eq, seconds=st.wall_s,
+         cells_per_s=st.cells_per_s)
+    check(claims_eq, "elastic claim rows differ from BENCH_elastic.json")
+
+    # the telemetry trace probe of BENCH_obs.json
+    probe = bench["obs"]["probe"]
+    tr = sched_trace_probe(probe["n_jobs"], probe["seed"]).telemetry.trace
+    got = dict(sha256=tr.sha256(), n_events=len(tr))
+    emit(phase="scheduler", part="trace_probe", **got,
+         equal=got == dict(sha256=probe["sha256"],
+                           n_events=probe["n_events"]))
+    check(got == dict(sha256=probe["sha256"], n_events=probe["n_events"]),
+          f"trace probe differs from BENCH_obs.json: {got}")
+
+    # telemetry's overhead at the 4096-host point, bench_obs's way: a
+    # discarded warmup, gc before every timed run, interleaved pairs
+    gate = bench["obs"]["gate"]
+    p = SCHED_SCALE
+    check(list(p["hosts_per_pod"]) == gate["hosts_per_pod"]
+          and p["n_jobs"] == gate["n_jobs"] and p["seed"] == gate["seed"]
+          and p["slots"] == gate["map_slots"] and p["algo"] == gate["algo"]
+          and p["wan_oversub"] == gate["wan_oversub"],
+          "the scale point is not BENCH_obs.json's")
+    t0 = time.perf_counter()
+    sched_scale_run(None)
+    pairs = []
+    for _ in range(SCHED_OVERHEAD_PAIRS):
+        gc.collect()
+        r_off, ev_off = sched_scale_run(None)
+        gc.collect()
+        r_on, ev_on = sched_scale_run(TelemetryConfig())
+        check((r_off.wtt, r_off.int_bytes) == (r_on.wtt, r_on.int_bytes),
+              "telemetry moved the scale point's trajectory")
+        pairs.append((ev_off, ev_on))
+    ev_off, ev_on = max(pairs, key=lambda q: q[1] / q[0])
+    ratio = ev_on / ev_off
+    out.update(off_events_per_s=ev_off, on_events_per_s=ev_on, ratio=ratio)
+    emit(phase="scheduler", part="telemetry_overhead",
+         hosts=sum(p["hosts_per_pod"]), n_jobs=p["n_jobs"],
+         wtt=r_off.wtt, int_mb=r_off.int_bytes, pairs=pairs,
+         off_events_per_s=ev_off, on_events_per_s=ev_on, ratio=ratio,
+         floor=gate["floor"], seconds=time.perf_counter() - t0)
+    check(ratio >= gate["floor"],
+          f"telemetry overhead {ratio:.3f} below {gate['floor']}")
+
+    # the paper's §6 comparison at its full size (python -m
+    # repro_torch.sim.experiment --full)
+    t0 = time.perf_counter()
+    for title, res in experiment.paper_tables(full=True):
+        rows = {a: experiment.table_row(s) for a, s in res.items()}
+        emit(phase="scheduler", part="paper_table", table=title, rows=rows)
+        check(all(math.isfinite(v) for r in rows.values()
+                  for v in r.values()), f"{title}: non-finite row")
+    out["paper_s"] = time.perf_counter() - t0
+    emit(phase="scheduler", part="paper", seconds=out["paper_s"])
+
+    # a mixed matrix through the lockstep backend: one seed of the fabric
+    # gate (batched through the fill kernel), elastic_matrix(2) and the
+    # chaos campaigns (both on the scalar fallback)
+    specs = (lockstep.gate_matrix(1)
+             + matrix("elastic_churn", SCHED_ALGOS, e["scenarios"], 2,
+                      fleet=e["fleet"], n_jobs=e["n_jobs"])
+             + matrix("chaos", SCHED_ALGOS, tuple(wl.chaos_scenarios()), 1))
+    n_fallback = sum(s.family != "fabric_contention" for s in specs)
+    fk.fill_rates_dt.launches = 0
+    fk.fill_rates_dt.launches_by_variant = {v: 0 for v in fk.VARIANTS}
+    eng = SweepEngine(backend="lockstep", device=DEV)
+    got, st = eng.run(specs)
+    launches = fk.fill_rates_dt.launches
+    by_variant = dict(fk.fill_rates_dt.launches_by_variant)
+    ls = eng.lockstep_stats
+    differing = [k for k in got
+                 if got[k] != run_cell(CellSpec.from_key(k))]
+    out.update(lockstep_s=st.wall_s, lockstep_launches=launches)
+    emit(phase="scheduler", part="lockstep_mixed", cells=st.n_cells,
+         batched=st.n_cells - ls.n_fallback, n_fallback=ls.n_fallback,
+         expected_fallback=n_fallback, batches=ls.batches,
+         launches=launches, launches_by_variant=by_variant,
+         epochs=ls.epochs, problems=ls.problems,
+         fill_s=ls.fill_s, seconds=st.wall_s, cells_differing=differing)
+    check(not differing, f"lockstep cells differ from run_cell: {differing}")
+    check(ls.n_fallback == n_fallback and st.n_cells == len(specs),
+          f"fallback {ls.n_fallback} != {n_fallback}")
+    check(launches > 0 and launches == ls.batches,
+          f"fill launches {launches} != batches {ls.batches}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -1896,7 +2229,8 @@ def main() -> None:
 
     done = {}
     runs = {"mapreduce": phase_mapreduce, "fill": phase_fill,
-            "lockstep": phase_lockstep, "kernel": phase_kernel,
+            "lockstep": phase_lockstep, "scheduler": phase_scheduler,
+            "kernel": phase_kernel,
             "wiring": phase_wiring,
             "serve": phase_serve, "times": phase_times, "grad": phase_grad,
             "train_wiring": phase_train_wiring, "train": phase_train}

@@ -153,10 +153,6 @@ class SimResult:
         return self.job_finish[job.job_id] - self.job_submit[job.job_id]
 
 
-def _not_ported(what: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet")
-
-
 class Simulator:
     """Runs one workload under one algorithm. Deterministic given the seed
     (plus the elastic engine's churn seed, when one is attached)."""
@@ -321,23 +317,45 @@ class Simulator:
         self.chaos_response = None  # ResponseSubsystem (set on attach)
 
         subs: List[Subsystem] = []
-        # the elastic, durability, migration, chaos, response and
-        # telemetry subsystems are not ported yet: a run that asks for one
-        # raises instead of running without it
         if self.elastic is not None:
-            _not_ported("the elastic engine (elastic/)")
-        # fast (class-aggregated) allocator, per the config
+            from repro_torch.elastic.durability import DurabilitySubsystem
+            from repro_torch.elastic.engine import ElasticSubsystem
+            subs.append(ElasticSubsystem(self.elastic))
+            if self.dur is not None:
+                subs.append(DurabilitySubsystem(self.dur))
+            mig_cfg = getattr(self.elastic, "migration_cfg", None)
+            if mig_cfg is not None and mig_cfg.enabled:
+                from repro_torch.elastic.migration import MigrationSubsystem
+                self.migration = MigrationSubsystem(mig_cfg)
+                subs.append(self.migration)
+        # fast (class-aggregated) or reference allocator, per the config
         self.fabric = None
         if cfg.fabric is not None:
             self.fabric = make_fabric(self.cluster, cfg.fabric)
             subs.append(self.fabric)
+        # chaos + response: injection attaches before response so
+        # a same-instant injection is visible to that tick's deadline
+        # scan, and both before telemetry so their notes are observable
         if cfg.chaos is not None and cfg.chaos.enabled:
-            _not_ported("chaos injection (chaos/inject.py)")
+            from repro_torch.chaos.inject import ChaosSubsystem
+            subs.append(ChaosSubsystem(cfg.chaos))
         if cfg.response is not None and cfg.response.enabled:
-            _not_ported("the chaos response loop (chaos/response.py)")
+            from repro_torch.chaos.response import ResponseSubsystem
+            subs.append(ResponseSubsystem(cfg.response))
+        # telemetry: attached last so its samples see the fabric;
+        # hook-only (no event kinds, no RNG), so trajectories don't move
         self.telemetry = None
         if cfg.telemetry is not None:
-            _not_ported("telemetry (obs/telemetry.py)")
+            # local import: repro_torch.obs imports the engine module, so a
+            # top-level import here would be circular
+            from repro_torch.obs.telemetry import TelemetrySubsystem
+            self.telemetry = TelemetrySubsystem(cfg.telemetry)
+            subs.append(self.telemetry)
+            if self.elastic is not None:
+                attach = getattr(self.elastic.autoscaler,
+                                 "attach_scoreboard", None)
+                if attach is not None:
+                    attach(self.telemetry.scoreboard)
         subs.extend(self.extra_subsystems)
         return subs
 

@@ -972,9 +972,8 @@ def make_fabric(cluster: VirtualCluster,
     (default) or the retained per-flow reference allocator."""
     cfg = cfg or FabricConfig()
     if cfg.allocator == "reference":
-        raise NotImplementedError(
-            "the per-flow reference allocator (sim/network_reference.py) "
-            "is not ported yet")
+        from repro_torch.sim.network_reference import ReferenceNetworkFabric
+        return ReferenceNetworkFabric(cluster, cfg)
     if cfg.allocator != "fast":
         raise ValueError(f"unknown fabric allocator {cfg.allocator!r}")
     return NetworkFabric(cluster, cfg)

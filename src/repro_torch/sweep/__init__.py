@@ -1,8 +1,9 @@
-"""Monte-Carlo sweeps over the scheduler simulator: cells, the lockstep
-executor whose fabric fills go through the batched CUDA fill kernel, and
-the deterministic aggregation of per-cell metrics (a port of
-``repro/sweep/``; the process pool and the result store are not ported
-yet)."""
+"""Monte-Carlo sweeps over the scheduler simulator: cells (the
+``fabric_contention``, ``elastic_churn`` and ``chaos`` families), the
+lockstep executor whose fabric fills go through the batched CUDA fill
+kernel, and the deterministic aggregation of per-cell metrics (a port of
+``repro/sweep/``; the process pool, the result store and the ``selftest``
+family that probes the pool are not ported yet)."""
 from repro_torch.sweep.cells import (CELL_FAMILIES, LOCKSTEP_BUILDERS,
                                      CellSpec, make_params, matrix, run_cell,
                                      summary_metrics)

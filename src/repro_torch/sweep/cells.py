@@ -13,8 +13,12 @@ Families registered here:
   * ``fabric_contention`` — the bench_fabric contention matrix: burst
     small workload through the contention-aware fabric at a named WAN
     oversubscription level;
-  * ``elastic_churn``, ``chaos`` and ``selftest`` — registered so their
-    keys resolve, but not ported yet: running one raises.
+  * ``elastic_churn`` — the bench_elastic sweep cell: an elastic fleet
+    under a named churn scenario with its autoscaler;
+  * ``chaos`` — the bench_chaos A/B cell: a named fault campaign with the
+    detection/response loop on or off;
+  * ``selftest`` — registered so its keys resolve, but not ported yet
+    (it probes the process pool): running one raises.
 
 A cell returns a flat ``{metric: value}`` dict — every scalar field of
 ``repro_torch.sim.metrics.Summary`` plus bookkeeping — which is what the
@@ -169,6 +173,81 @@ def _fabric_contention_cell(spec: CellSpec) -> Dict[str, float]:
     return finish(sim.run())
 
 
+def _elastic_churn_cell(spec: CellSpec) -> Dict[str, float]:
+    """Elastic fleet under a named churn scenario with the
+    scenario-appropriate autoscaler (the bench_elastic sweep cell,
+    parameterized by seed)."""
+    from repro_torch.core.joss import make_algorithm
+    from repro_torch.elastic import (BacklogThresholdScaler, ChurnConfig,
+                                     CostCappedSpotScaler, ElasticEngine,
+                                     FixedFleet)
+    from repro_torch.sim.cluster_sim import Simulator
+    from repro_torch.sim.workloads import (churn_scenarios, make_cluster,
+                                           small_workload)
+    hosts_per_pod = tuple(spec.param("fleet", (8, 8)))
+    n_jobs = int(spec.param("n_jobs", 40))
+    seed = spec.sim_seed()
+    cfg_kw = churn_scenarios()[spec.scenario]
+    cluster = make_cluster(hosts_per_pod)
+    jobs = small_workload(cluster, seed=seed, n_jobs=n_jobs)
+    algo = make_algorithm(spec.algo, cluster)
+    _warm_registry(algo, cluster)
+    n_hosts = sum(hosts_per_pod)
+    if spec.scenario == "lease":
+        scaler = BacklogThresholdScaler(min_hosts=max(2, n_hosts // 2),
+                                        max_hosts=2 * n_hosts)
+    elif spec.scenario == "spot":
+        scaler = CostCappedSpotScaler(budget=0.25 * n_hosts,
+                                      min_hosts=max(2, n_hosts // 2),
+                                      max_hosts=2 * n_hosts)
+    else:
+        scaler = FixedFleet()
+    churn = ChurnConfig(seed=seed + 1, **cfg_kw) if cfg_kw else None
+    elastic = ElasticEngine(cluster, churn=churn, autoscaler=scaler)
+    res = Simulator(cluster, algo, jobs, seed=seed,
+                    elastic=elastic).run()
+    assert len(res.job_finish) == n_jobs, \
+        f"{spec.algo}/{spec.scenario}#{spec.seed}: " \
+        f"{len(res.job_finish)}/{n_jobs} jobs finished"
+    return summary_metrics(res)
+
+
+def _chaos_cell(spec: CellSpec) -> Dict[str, float]:
+    """A named fault campaign from ``chaos_scenarios`` against one
+    algorithm, with the detection/response loop toggled by the
+    ``detect`` param (the bench_chaos A/B cell, parameterized by seed).
+    The campaign seed is derived from the cell key too, so replica *i*
+    of ``detect=True`` and ``detect=False`` cells see *different*
+    campaigns — A/B pairs that must share a campaign pin it with an
+    explicit ``chaos_seed`` param instead."""
+    from repro_torch.chaos import ChaosConfig, ResponseConfig
+    from repro_torch.core.joss import make_algorithm
+    from repro_torch.sim.cluster_sim import SimConfig, Simulator
+    from repro_torch.sim.workloads import (chaos_scenarios, make_cluster,
+                                           small_workload)
+    hosts_per_pod = tuple(spec.param("hosts_per_pod", (5, 5)))
+    n_jobs = int(spec.param("n_jobs", 20))
+    seed = spec.sim_seed()
+    camp_kw = chaos_scenarios()[spec.scenario]
+    cluster = make_cluster(hosts_per_pod)
+    jobs = small_workload(cluster, seed=seed, n_jobs=n_jobs)
+    algo = make_algorithm(spec.algo, cluster)
+    _warm_registry(algo, cluster)
+    chaos = ChaosConfig(seed=int(spec.param("chaos_seed", seed + 1)),
+                        **camp_kw)
+    response = None
+    if spec.param("detect", True):
+        response = ResponseConfig(
+            grace=float(spec.param("grace", 2.0)),
+            quarantine_at=float(spec.param("quarantine_at", 1.0)))
+    cfg = SimConfig(chaos=chaos, response=response)
+    res = Simulator(cluster, algo, jobs, config=cfg, seed=seed).run()
+    assert len(res.job_finish) == n_jobs, \
+        f"{spec.algo}/{spec.scenario}#{spec.seed}: " \
+        f"{len(res.job_finish)}/{n_jobs} jobs finished"
+    return summary_metrics(res)
+
+
 def _not_ported(what: str) -> Callable[[CellSpec], Dict[str, float]]:
     def cell(spec: CellSpec) -> Dict[str, float]:
         raise NotImplementedError(
@@ -178,8 +257,8 @@ def _not_ported(what: str) -> Callable[[CellSpec], Dict[str, float]]:
 
 CELL_FAMILIES: Dict[str, Callable[[CellSpec], Dict[str, float]]] = {
     "fabric_contention": _fabric_contention_cell,
-    "elastic_churn": _not_ported("needs elastic/"),
-    "chaos": _not_ported("needs chaos/"),
+    "elastic_churn": _elastic_churn_cell,
+    "chaos": _chaos_cell,
     "selftest": _not_ported("probes the process pool"),
 }
 

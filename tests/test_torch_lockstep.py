@@ -120,11 +120,44 @@ def test_unported_parts_raise():
         SweepEngine(store=object())
     with pytest.raises(ValueError, match="unknown sweep backend"):
         SweepEngine(backend="bogus")
-    for fam in ("elastic_churn", "chaos", "selftest"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            run_cell(CellSpec(fam, "joss-t", "flaky", 0))
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        make_fabric(make_cluster((2, 2)), FabricConfig(allocator="reference"))
+        run_cell(CellSpec("selftest", "joss-t", "ok", 0))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             LockstepExecutor()
+
+
+@pytest.mark.parametrize("family,scenario", [("elastic_churn", "flaky"),
+                                             ("chaos", "hostile")])
+def test_ported_families_run_and_equal_jax(family, scenario):
+    """The elastic_churn and chaos families, once refused here, run and
+    give JAX's metric dicts."""
+    kw = (dict(fleet=(4, 4), n_jobs=8) if family == "elastic_churn"
+          else dict(hosts_per_pod=(4, 4), n_jobs=8))
+    spec = matrix(family, ("joss-t",), (scenario,), 1, **kw)[0]
+    jspec = jax_matrix(family, ("joss-t",), (scenario,), 1, **kw)[0]
+    assert run_cell(spec) == jax_run_cell(jspec)
+
+
+def test_reference_allocator_is_built():
+    from repro_torch.sim.network_reference import ReferenceNetworkFabric
+    fab = make_fabric(make_cluster((2, 2)),
+                      FabricConfig(allocator="reference"))
+    assert isinstance(fab, ReferenceNetworkFabric)
+
+
+def test_lockstep_mixed_matrix_falls_back_for_elastic_and_chaos():
+    """A matrix mixing batched fabric cells with elastic and chaos cells:
+    the latter run on the scalar fallback, every cell equals run_cell."""
+    specs = (matrix("fabric_contention", ("joss-t",), ("oversub8",), 1,
+                    **GATE)
+             + matrix("elastic_churn", ("fifo",), ("flaky", "spot"), 1,
+                      fleet=(4, 4), n_jobs=8)
+             + matrix("chaos", ("joss-j",), ("gray",), 1,
+                      hosts_per_pod=(4, 4), n_jobs=8))
+    eng = SweepEngine(backend="lockstep", device="cpu")
+    got, st = eng.run(specs)
+    assert got == run_serial(specs)
+    assert st.n_cells == 4
+    assert eng.lockstep_stats.n_fallback == 3
+    assert eng.lockstep_stats.batches > 0
