@@ -27,6 +27,15 @@ Phases, each failing the run with a non-zero exit:
                paper's §6 comparison, and a mixed matrix through the
                lockstep backend (fabric cells on the fill kernel, elastic
                and chaos cells on the scalar fallback)
+  sweep_pool - the sweep's process pool of spawned workers, its result
+               store and its selftest family, and the naive dispatch
+               reference: bench_sweep's 15-cell determinism matrix
+               inline, shuffled and on 4 workers (its aggregate sha
+               equal to BENCH_sweep.json's), a cold and a warm store run,
+               crashed, hung and poisoned selftest cells on 2 workers, no
+               worker with CUDA initialised; the reference against the
+               indexed algorithms on the paper workload, and both sides'
+               assign rates at BENCH_dispatch.json's sizes (host times)
   3. kernel  - flash_attention (each case on the kernel the wrapper
                chooses, tc / split / simt; split at several n_split; the
                simt kernel also at the bf16 serving shapes) and gla_scan
@@ -57,15 +66,19 @@ Phases, each failing the run with a non-zero exit:
                the plain functions, at the serving and training shapes and
                a ragged one; the raw wrappers must refuse grad-requiring
                inputs
-  8. train_wiring - qwen3-4b and hymba-1.5b at full width, 2 layers, f32:
-               loss, every gradient and three make_train_step steps with
-               the kernels vs the all-plain model (attn_impl="chunked",
-               gla_impl="chunked") from the same weights, beside a
-               control with attention's q/k/v gradients zeroed
-  9. train   - the training main paths in bf16: qwen3-4b, hymba-1.5b and
-               whisper-medium at full width and depth, rwkv6-7b at 8
-               layers, each on batches of the JoSS policy-B pipeline (and
-               whisper's seeded audio frames) and then one batch repeated
+  8. train_wiring - qwen3-4b, hymba-1.5b and internvl2-26b at full
+               width, 2 layers, and dbrx-132b at 1 layer with 4 of its 16
+               experts, f32: loss, every gradient and three
+               make_train_step steps with the kernels vs the all-plain
+               model (attn_impl="chunked", gla_impl="chunked") from the
+               same weights, beside a control with attention's q/k/v
+               gradients zeroed
+  9. train   - the training main paths in bf16: qwen3-4b and
+               whisper-medium at full width and depth, hymba-1.5b at 16
+               layers, rwkv6-7b at 8, dbrx-132b at 1 layer, arctic-480b at 1 layer with
+               32 of its 128 experts, internvl2-26b at 10 layers, each on
+               batches of the JoSS policy-B pipeline (and whisper's
+               frames, internvl2's patches) and then one batch repeated
                (its loss must fall); launches counted per run, one step
                profiled; then qwen3-4b at 4 layers: n_micro 2 vs 1, int8
                compression, a checkpoint round trip
@@ -75,13 +88,16 @@ JAX package.
 """
 import dataclasses
 import gc
+import hashlib
 import itertools
 import json
 import math
+import random
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -95,7 +111,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import mapreduce as mr  # noqa: E402
 from repro_torch.chaos import ChaosConfig, ResponseConfig  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core.joss import make_algorithm  # noqa: E402
+from repro_torch.core.joss import JossT, make_algorithm  # noqa: E402
+from repro_torch.core.reference import (ReferenceJossT,  # noqa: E402
+                                        make_reference_algorithm)
 from repro_torch.core.topology import (ElasticLinks, HostId,  # noqa: E402
                                        VirtualCluster)
 from repro_torch.data import JossDataPipeline, TokenStore  # noqa: E402
@@ -118,8 +136,9 @@ from repro_torch.sim import experiment, golden  # noqa: E402
 from repro_torch.sim import workloads as wl  # noqa: E402
 from repro_torch.sim.cluster_sim import SimConfig, Simulator  # noqa: E402
 from repro_torch.sim.network import FabricConfig  # noqa: E402
-from repro_torch.sweep import (CellSpec, SweepEngine,  # noqa: E402
-                               aggregate_cells, matrix, run_cell)
+from repro_torch.sweep import (CellSpec, ResultStore,  # noqa: E402
+                               SweepEngine, aggregate_cells, aggregate_json,
+                               make_params, matrix, run_cell)
 from repro_torch.sweep import lockstep  # noqa: E402
 from repro_torch.sweep import vmap_fill as vf  # noqa: E402
 from repro_torch.train import (OptConfig, TrainConfig, adamw_init,  # noqa: E402
@@ -960,6 +979,223 @@ def phase_scheduler():
           f"fallback {ls.n_fallback} != {n_fallback}")
     check(launches > 0 and launches == ls.batches,
           f"fill launches {launches} != batches {ls.batches}")
+    return out
+
+
+# ---------------------------------------------------------- sweep_pool --
+# The sweep's process pool, its result store and its selftest family, and
+# the naive dispatch reference: host code. Every pool worker is spawned:
+# it imports this module afresh as __mp_main__ (whose top level makes no
+# CUDA call) and runs its cells on the host, never initialising CUDA.
+#
+# bench_sweep's determinism anchor: seed 0 of its contention matrix (5
+# algorithms x 3 scenarios on 8 + 8 hosts, 12 jobs), its aggregate over
+# the claim metrics (benchmarks/bench_sweep.py's FABRIC_CLAIM_METRICS)
+# hashed, shuffled as bench_sweep shuffles it
+POOL_SCENARIOS = ("uncontended", "oversub8", "oversub24")
+POOL_MATRIX = dict(hosts_per_pod=(8, 8), n_jobs=12)
+POOL_CLAIM_METRICS = ("wtt", "int_mb")
+POOL_SHUFFLE_SEED = 0xC0FFEE
+POOL_WORKERS = 4
+# the selftest runs: 2 workers; a hung cell's timeout also counts a
+# spawned worker's start-up (a few seconds), so 15 s
+SELFTEST_WORKERS = 2
+SELFTEST_TIMEOUT_S = 15.0
+SELFTEST_FAST = dict(retry_backoff_s=0.05, retry_backoff_cap_s=0.2)
+# bench_overhead's assign-rate point: 200 jobs of 8 blocks, best of 3
+ASSIGN_JOBS, ASSIGN_BLOCKS, ASSIGN_REPS = 200, 8, 3
+
+
+def pool_run(engine, specs, worker_cuda):
+    """``engine.run(specs)``, its workers' CUDA reports gathered."""
+    res, st = engine.run(specs)
+    worker_cuda.update(st.worker_cuda)
+    return res, st
+
+
+def selftest_cells(flag_dir, scenario=None):
+    ok = [CellSpec("selftest", "a", "ok", i) for i in range(4)]
+    if scenario is None:
+        return ok
+    return ok + [CellSpec("selftest", "a", scenario, 0,
+                          make_params(flag_dir=flag_dir, hang_s=600.0))]
+
+
+def reference_sim(factory, name):
+    """tests/test_dispatch_fastpath.py's paper-workload run: 12 jobs on a
+    4 + 4 fleet, the FP registry warmed by the profiling prelude; the
+    metrics and the assignment sequence, jobs by submission index."""
+    cluster = wl.make_cluster((4, 4))
+    jobs = wl.small_workload(cluster, seed=5, n_jobs=12)
+    idx = {j.job_id: i for i, j in enumerate(jobs)}
+    algo = factory(name, cluster)
+    if hasattr(algo, "registry"):
+        for j in wl.profiling_prelude(cluster):
+            algo.registry.record(j, j.true_fp)
+    res = Simulator(cluster, algo, jobs, seed=5).run()
+    check(len(res.job_finish) == len(jobs), f"reference {name}: jobs lost")
+    return (res.wtt, res.int_bytes, res.pod_bytes, res.n_reexec,
+            sorted((idx[k], v) for k, v in res.job_finish.items()),
+            [((lg.task.tid[0], idx[lg.task.tid[1]], *lg.task.tid[2:]),
+              lg.host, lg.start, lg.finish) for lg in res.task_logs])
+
+
+def assign_rate(hosts_per_pod, map_slots, reference):
+    """bench_overhead's ``_measure``: tasks assigned a second draining a
+    submitted backlog through JoSS-T's ``next_map_task``, slots offered
+    pod-major, best of ASSIGN_REPS fresh batches."""
+    cluster = VirtualCluster(list(hosts_per_pod), map_slots=map_slots)
+    rng = np.random.RandomState(0)
+    algo = (ReferenceJossT if reference else JossT)(cluster)
+    benches = list(wl.PAPER_BENCHMARKS.values())
+    for i, bench in enumerate(benches):
+        algo.registry.record(
+            wl._mk_job(cluster, bench, 128.0, 0.0, rng, tag=f"p{i}"),
+            bench.fp)
+    hosts_by_pod = [[h.hid for h in p.hosts] for p in cluster.pods]
+    backlog = algo.scheduler.queues.map_backlog
+    best = float("inf")
+    for rep in range(ASSIGN_REPS):
+        for i in range(ASSIGN_JOBS):
+            algo.submit(wl._mk_job(cluster, benches[i % len(benches)],
+                                   128.0 * ASSIGN_BLOCKS, 0.0, rng,
+                                   tag=f"r{rep}-{i}"))
+        n = backlog.n
+        t0 = time.perf_counter()
+        for _ in range(4):
+            if not algo.has_map_work():
+                break
+            for pod_hosts in hosts_by_pod:
+                for hid in pod_hosts:
+                    if algo.next_map_task(hid) is None:
+                        break
+        dt = time.perf_counter() - t0
+        best = min(best, dt / max(n - backlog.n, 1))
+    return 1.0 / best
+
+
+def phase_sweep_pool():
+    root = Path(__file__).resolve().parent
+    want_sha = json.loads((root / "BENCH_sweep.json").read_text()
+                          )["determinism"]
+    dispatch = json.loads((root / "BENCH_dispatch.json").read_text())
+    worker_cuda = {}
+    out = {}
+
+    # determinism: inline, shuffled, a pool of 4 into a cold store; then
+    # the warm run, served from the store without a worker
+    t0 = time.perf_counter()
+    det = matrix("fabric_contention", SCHED_ALGOS, POOL_SCENARIOS, 1,
+                 **POOL_MATRIX)
+    shuffled = random.Random(POOL_SHUFFLE_SEED).sample(det, len(det))
+    r_inline, st_inline = SweepEngine().run(det)
+    r_shuf, _ = SweepEngine().run(shuffled)
+    with tempfile.TemporaryDirectory() as store_dir:
+        pool = SweepEngine(workers=POOL_WORKERS,
+                           store=ResultStore(store_dir))
+        r_pool, st_cold = pool_run(pool, det, worker_cuda)
+        r_warm, st_warm = pool_run(pool, shuffled, worker_cuda)
+        n_entries = sum(1 for _ in Path(store_dir).rglob("*.json"))
+    aggs = [aggregate_json(r, metrics=POOL_CLAIM_METRICS)
+            for r in (r_inline, r_shuf, r_pool, r_warm)]
+    sha = hashlib.sha256(aggs[0].encode()).hexdigest()
+    cells_equal = r_inline == r_shuf == r_pool
+    warm_equal = (r_warm == r_pool and json.dumps(r_warm, sort_keys=True)
+                  == json.dumps(r_pool, sort_keys=True))
+    out["determinism_s"] = time.perf_counter() - t0
+    emit(phase="sweep_pool", part="determinism", cells=len(det),
+         workers=POOL_WORKERS, cells_equal=cells_equal,
+         aggregates_identical=len(set(aggs)) == 1, aggregate_sha256=sha,
+         bench_sha256=want_sha["aggregate_sha256"],
+         inline_s=st_inline.wall_s, pool_s=st_cold.wall_s,
+         cold={"executed": st_cold.n_executed, "cached": st_cold.n_cached},
+         warm={"executed": st_warm.n_executed, "cached": st_warm.n_cached,
+               "s": st_warm.wall_s, "cells_bit_equal": warm_equal},
+         store_entries=n_entries, seconds=out["determinism_s"])
+    check(len(det) == want_sha["n_cells"] and cells_equal
+          and len(set(aggs)) == 1,
+          "inline, shuffled and pooled sweeps differ")
+    check(sha == want_sha["aggregate_sha256"],
+          f"determinism aggregate sha {sha} differs from BENCH_sweep.json's")
+    check(st_cold.n_executed == len(det) and st_warm.n_executed == 0
+          and st_warm.n_cached == len(det) and warm_equal
+          and n_entries == len(det),
+          f"the warm store run executed {st_warm.n_executed} cells")
+
+    # the selftest family on 2 workers: a crash retried (beside a
+    # crash-free inline run of the same ok cells), a hang charged a
+    # timeout and retried, an always-crashing cell poisoned
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as flag_dir:
+        crash = selftest_cells(flag_dir, "crash_once")
+        noisy, st_crash = pool_run(
+            SweepEngine(workers=SELFTEST_WORKERS, **SELFTEST_FAST), crash,
+            worker_cuda)
+        clean, _ = SweepEngine().run(selftest_cells(flag_dir))
+        hang = selftest_cells(flag_dir, "hang_once")
+        hung, st_hang = pool_run(
+            SweepEngine(workers=SELFTEST_WORKERS,
+                        cell_timeout=SELFTEST_TIMEOUT_S, **SELFTEST_FAST),
+            hang, worker_cuda)
+    poison = [CellSpec("selftest", "a", "crash_always", 0)]
+    poisoned, st_poison = pool_run(
+        SweepEngine(workers=SELFTEST_WORKERS, max_attempts=2,
+                    **SELFTEST_FAST), poison, worker_cuda)
+    unaffected = {k: v for k, v in noisy.items() if k in clean}
+    agg_identical = (aggregate_json(unaffected, metrics=("ok",))
+                     == aggregate_json(clean, metrics=("ok",)))
+    rows = {"crash_once": st_crash.cell_report[crash[-1].key()],
+            "hang_once": st_hang.cell_report[hang[-1].key()],
+            "crash_always": st_poison.cell_report[poison[0].key()]}
+    counts = {name: {k: getattr(st, k) for k in (
+        "n_retried", "n_poisoned", "n_timeouts", "n_pool_rebuilds")}
+        for name, st in (("crash_once", st_crash), ("hang_once", st_hang),
+                         ("crash_always", st_poison))}
+    out["selftest_s"] = time.perf_counter() - t0
+    emit(phase="sweep_pool", part="selftest", workers=SELFTEST_WORKERS,
+         cell_timeout_s=SELFTEST_TIMEOUT_S, cells=rows, counts=counts,
+         results={"crash_once": len(noisy), "hang_once": len(hung),
+                  "crash_always": len(poisoned)},
+         unaffected_aggregate_identical=agg_identical,
+         seconds=out["selftest_s"])
+    check(len(noisy) == 5 and rows["crash_once"]["status"] == "ok"
+          and rows["crash_once"]["crashes"] >= 1
+          and st_crash.n_pool_rebuilds >= 1 and st_crash.n_poisoned == 0,
+          f"crash_once was not retried to completion: {rows['crash_once']}")
+    check(agg_identical, "the crash moved the unaffected cells' aggregate")
+    check(len(hung) == 5 and rows["hang_once"]["status"] == "ok"
+          and rows["hang_once"]["timeouts"] == 1 and st_hang.n_timeouts == 1,
+          f"hang_once was not timed out and retried: {rows['hang_once']}")
+    check(poisoned == {} and rows["crash_always"] == {
+        "attempts": 2, "crashes": 2, "timeouts": 0, "status": "poisoned"},
+        f"crash_always was not poisoned: {rows['crash_always']}")
+
+    emit(phase="sweep_pool", part="workers", workers=len(worker_cuda),
+         cuda_initialized=sorted(set(worker_cuda.values())),
+         parent_cuda_initialized=torch.cuda.is_initialized())
+    check(worker_cuda and not any(worker_cuda.values()),
+          f"a pool worker initialised CUDA: {worker_cuda}")
+
+    # the dispatch reference: equal SimResults on the paper workload, and
+    # both sides' assign rates at BENCH_dispatch.json's sizes
+    t0 = time.perf_counter()
+    ref_eq = {a: reference_sim(make_algorithm, a)
+              == reference_sim(make_reference_algorithm, a)
+              for a in SCHED_ALGOS}
+    rates = []
+    for point in dispatch["assign"]:
+        hpp = [point["hosts"] // point["pods"]] * point["pods"]
+        slots = point["map_slots"]
+        old = assign_rate(hpp, slots, reference=True)
+        new = assign_rate(hpp, slots, reference=False)
+        rates.append({"hosts": point["hosts"], "pods": point["pods"],
+                      "map_slots": slots, "old_tasks_per_s": old,
+                      "new_tasks_per_s": new, "speedup": new / old})
+    out["reference_s"] = time.perf_counter() - t0
+    emit(phase="sweep_pool", part="dispatch_reference", equal=ref_eq,
+         assign=rates, seconds=out["reference_s"])
+    check(all(ref_eq.values()),
+          f"the reference differs from the indexed algorithms: {ref_eq}")
     return out
 
 
@@ -1827,10 +2063,17 @@ def phase_grad():
 # runs read 2.2e-5 and 1.8e-4, the controls 0.24-0.26 (PERF.md): 1e-2
 # sits well apart from both
 TRAIN_WIRING = [
-    # (arch, B, S): hymba at S = 2 x window, so its backward is banded
+    # (arch, B, S): hymba at S = 2 x window, so its backward is banded;
+    # internvl2-26b's 256 patch tokens come ahead of its 512
     ("qwen3-4b", 2, 512),
     ("hymba-1.5b", 2, 2048),
+    ("internvl2-26b", 2, 512),
+    ("dbrx-132b", 2, 512),
 ]
+# 2 layers unless cut here: two f32 copies of one full dbrx-132b layer
+# (13 GB of params each, and as much again of grads and twice that of
+# moments) do not fit, so 1 layer with 4 of its 16 experts, top-4
+TRAIN_WIRING_CUT = {"dbrx-132b": dict(n_layers=1, n_experts=4)}
 TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4, 1e-3
 TRAIN_PARAM_RTOL = 1e-2
 TRAIN_WIRING_STEPS = 3
@@ -1872,11 +2115,12 @@ def tree_rel(a, b):
 
 def phase_train_wiring():
     for arch, B, S in TRAIN_WIRING:
-        cfg = get_config(arch).scaled(n_layers=2, dtype="float32")
+        cut = dict(dict(n_layers=2), **TRAIN_WIRING_CUT.get(arch, {}))
+        cfg = get_config(arch).scaled(dtype="float32", **cut)
         toks = torch.randint(0, cfg.vocab, (B, S), device=DEV,
                              generator=torch.Generator(device=DEV)
                              .manual_seed(6))
-        batch = {"tokens": toks}
+        batch = with_side(cfg, {"tokens": toks}, 6)
         plain = dict(attn_impl="chunked", gla_impl="chunked")
         k_loss, k_g, k_met, k_d = wiring_steps(
             cfg, batch, dict(attn_impl="flash", gla_impl="kernel"))
@@ -1896,7 +2140,8 @@ def phase_train_wiring():
         loss_rel = abs(k_loss - p_loss) / abs(p_loss)
         gn_k, gn_p = k_met[0]["grad_norm"], p_met[0]["grad_norm"]
         emit(phase="train_wiring", arch=cfg.name, n_layers=cfg.n_layers,
-             d_model=cfg.d_model, dtype=cfg.dtype, batch=B, seq_len=S,
+             reduced=reduced(arch, cfg), d_model=cfg.d_model,
+             dtype=cfg.dtype, batch=B, seq_len=S,
              kernel="attn_impl=flash, gla_impl=kernel",
              plain="attn_impl=chunked, gla_impl=chunked",
              loss=[k_loss, p_loss], loss_rel_err=loss_rel,
@@ -1932,17 +2177,31 @@ def phase_train_wiring():
 TRAIN = {
     # arch -> (layers (None = the full depth), batch, seq len, steps on
     # pipeline batches, steps on the last of them repeated, layers of the
-    # profiled step). hymba-1.5b takes ~9-10 s a step (its plain GLA
-    # backward loops over 64 chunks a layer from the host, ~400 k small
-    # ops a step), and its step is profiled at 4 layers: the profiler's
-    # Python side took 211 s over the 32
+    # profiled step). hymba-1.5b took ~9.7 s a step at its full 32
+    # layers (its plain GLA backward loops over 64 chunks a layer from the
+    # host, ~400 k small ops a step), 75 s of the run's time budget, so it
+    # trains at 16 of them; its step is profiled at 4 layers: the
+    # profiler's Python side took 211 s over the 32
     "qwen3-4b": (None, 4, 1024, 5, 3, None),
-    "hymba-1.5b": (None, 4, 2048, 5, 3, 4),
+    "hymba-1.5b": (16, 4, 2048, 5, 3, 4),
     "rwkv6-7b": (8, 4, 1024, 5, 3, None),
     # full depth (24 + 24 layers), 30 s of audio a sequence and its whole
     # 448-token text context
     "whisper-medium": (None, 8, 448, 5, 3, None),
+    # the moe and vlm families at full width, 12 B a param (bf16 params
+    # and grads, f32 moments): one dbrx-132b layer (3.26 B params, all 16
+    # experts, top-4) is 39 GB beside 14.8 GB of untied embeddings (peak
+    # 56.7 GB on an H100, PERF.md); one arctic-480b layer (13.6 B) would
+    # be 163 GB, so its expert count is cut to 32 of 128 (each expert's
+    # shape, top-2 and the dense residual FFN unchanged), ~48 GB (peak
+    # 53.2); internvl2-26b's layers are 0.39 B, 4.7 GB each, beside 13.7
+    # GB: 8 layers peaked at 58.7 GB, so 10 (~68 GB) leave 12 GB free
+    "dbrx-132b": (1, 4, 1024, 5, 3, None),
+    "arctic-480b": (1, 4, 1024, 5, 3, None),
+    "internvl2-26b": (10, 4, 1024, 5, 3, None),
 }
+# cuts beyond the depth
+TRAIN_CUT = {"arctic-480b": dict(n_experts=32)}
 TRAIN_FRAMES = {"whisper-medium": 3000}
 TRAIN_OPT = OptConfig(lr=1e-3, warmup_steps=0, total_steps=1000)
 # the 4-layer qwen3-4b runs: n_micro 2 against 1 on one batch (loss and
@@ -1997,10 +2256,20 @@ def profile_step(step, state, batch):
     return state, out
 
 
+def reduced(arch, cfg):
+    """The cuts of ``cfg`` against the arch's published config, as
+    "field kept of full"."""
+    full = get_config(arch)
+    return [f"{f} {getattr(cfg, f)} of {getattr(full, f)}"
+            for f in ("n_layers", "encoder_layers", "n_experts")
+            if getattr(cfg, f) != getattr(full, f)]
+
+
 def run_train(arch):
     layers, B, S, pipe_steps, repeat_steps, prof_layers = TRAIN[arch]
     cfg = get_config(arch)
     cfg = cfg.scaled(n_layers=layers) if layers else cfg
+    cfg = cfg.scaled(**TRAIN_CUT.get(arch, {}))
     gla = cfg.family in ("ssm", "hybrid")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2051,7 +2320,9 @@ def run_train(arch):
     prof["n_layers"] = prof_layers or cfg.n_layers
     emit(phase="train", arch=cfg.name, n_layers=cfg.n_layers,
          encoder_layers=cfg.encoder_layers or None,
-         full_depth=layers is None, d_model=cfg.d_model, dtype=cfg.dtype,
+         full_depth=layers is None, reduced=reduced(arch, cfg),
+         n_experts=cfg.n_experts or None, d_model=cfg.d_model,
+         dtype=cfg.dtype,
          params=n_params, batch=B, seq_len=S,
          frames=TRAIN_FRAMES.get(arch), n_micro=1, steps=n_steps,
          pipeline_steps=pipe_steps, repeated_steps=repeat_steps,
@@ -2172,7 +2443,8 @@ def kernel_entry(kernel, source, replaces, launches, max_abs_err, per):
     runs' calls (each shape's per-call time x its calls in a run). ms,
     plain_ms and library_ms are eager calls timed by CUDA events, as in
     every PR; device_ms is the kernel's time in CUDA graphs; simt_* are
-    the first design's."""
+    the first design's. ``launches`` holds each main-path run's count:
+    the serving runs by arch, the training runs as "train:<arch>"."""
     rows = {name: row for (k, name), row in per.items() if k == kernel}
 
     def total(key):
@@ -2230,7 +2502,7 @@ def main() -> None:
     done = {}
     runs = {"mapreduce": phase_mapreduce, "fill": phase_fill,
             "lockstep": phase_lockstep, "scheduler": phase_scheduler,
-            "kernel": phase_kernel,
+            "sweep_pool": phase_sweep_pool, "kernel": phase_kernel,
             "wiring": phase_wiring,
             "serve": phase_serve, "times": phase_times, "grad": phase_grad,
             "train_wiring": phase_train_wiring, "train": phase_train}
@@ -2263,6 +2535,11 @@ def kernels_line(errs, launches, variants, per, launches_train, profiles):
     def by_kernel(kernel, runs):
         return {arch: n[kernel] for arch, n in runs.items() if n[kernel]}
 
+    def by_run(kernel):  # the serving runs by arch, the training runs too
+        return dict(by_kernel(kernel, launches), **{
+            f"train:{arch}": n
+            for arch, n in by_kernel(kernel, launches_train).items()})
+
     def serving_err(tag):  # bf16 serving shapes, the variant chosen there
         name, dtype, variant = tag.split("/")[:3]
         return (name in SERVING_CASES and dtype == "bfloat16"
@@ -2272,14 +2549,14 @@ def kernels_line(errs, launches, variants, per, launches_train, profiles):
         "flash_attention",
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention.py:27",
-        by_kernel("flash_attention", launches),
+        by_run("flash_attention"),
         max(v for k, v in errs.items()
             if k.startswith("flash_attention:")
             and serving_err(k.split(":")[1])),
         per)
     gla = kernel_entry(
         "gla_scan", "src/repro_torch/kernels/csrc/gla_scan.cu",
-        "src/repro/kernels/gla_scan.py:30", by_kernel("gla_scan", launches),
+        "src/repro/kernels/gla_scan.py:30", by_run("gla_scan"),
         max(errs[f"gla_scan:{name}_prefill/bfloat16/tc"]
             for name in ("rwkv6", "hymba")),
         per)
@@ -2295,10 +2572,13 @@ def kernels_line(errs, launches, variants, per, launches_train, profiles):
         # the device time of its plain backward (the recompute)
         entry["launches_train"] = by_kernel(name, launches_train)
         entry["train_step_device_ms"] = {
-            arch: {"forward_kernel": prof[fwd_key[name]],
-                   "backward_plain": prof[f"{name}_backward_device_ms"],
-                   "step": prof["step_device_ms"],
-                   "n_layers": prof["n_layers"]}
+            arch: dict({"forward_kernel": prof[fwd_key[name]],
+                        "backward_plain": prof[f"{name}_backward_device_ms"],
+                        "step": prof["step_device_ms"],
+                        "n_layers": prof["n_layers"]},
+                       **({"moe_dispatch_backward":
+                           prof["moe_dispatch_backward_device_ms"]}
+                          if prof["moe_dispatch_backward_device_ms"] else {}))
             for arch, prof in profiles.items() if launches_train[arch][name]}
     return [flash, gla]
 

@@ -1,8 +1,15 @@
 """PyTorch/CUDA port of the ``repro`` package, for one NVIDIA H100.
 
 The JAX package ``repro`` stays the reference; this package mirrors its
-module paths and never imports it (or ``jax``). The first slice is the
-JoSS-routed serving path: router -> batched prefill -> greedy decode on the
-dense ``TransformerLM``, with every attention call going through the
-hand-written CUDA flash-attention kernel in ``kernels/csrc``.
+module paths and never imports it (or ``jax``). On one device it does
+everything the JAX package does: the JoSS scheduler and its simulator
+(``core/``, ``sim/``, ``elastic/``, ``chaos/``, ``obs/``, ``runtime/``), the
+sweeps over it (``sweep/``: a process pool, a result store, and a lockstep
+backend whose fabric fills go through the hand-written fill kernel), the
+MapReduce data plane's local half (``mapreduce/``), and the LM zoo's
+JoSS-routed serving and training paths (``serve/``, ``train/``,
+``models/``), every attention call through the hand-written flash-attention
+kernel and every GLA scan through the hand-written GLA kernel
+(``kernels/csrc``). The multi-device layer (the mesh, sharding and the
+expert-parallel MoE) is not ported yet.
 """

@@ -16,11 +16,16 @@ autograd of the plain version the JAX package trains through:
 - ``GlaScanFn``: ``kernels.gla_scan.gla_scan_ref``, the function the GLA
   kernel computes (``gla_chunked`` in chunks of 32, ``shifted_prev``).
 
-``kernels.ops`` routes through these when grad mode is on and an input
-requires grad; the raw wrappers raise on such inputs (``refuse_grad``).
-The wrappers import this module, so it imports them where it calls them.
-Each backward runs inside a ``torch.profiler.record_function`` range named
-in ``BACKWARD_SPANS``, so a profile can tell its device time apart.
+``PlainSpanFn`` wraps a plain function the same way, without a kernel: the
+MoE dispatch and combine (``models.moe``) go through it, so that the
+device time of their scatter and gather backwards has a span of its own.
+
+``kernels.ops`` routes through the kernels' Functions when grad mode is on
+and an input requires grad; the raw wrappers raise on such inputs
+(``refuse_grad``). The wrappers import this module, so it imports them
+where it calls them. Each backward runs inside a
+``torch.profiler.record_function`` range named in ``BACKWARD_SPANS``, so
+a profile can tell its device time apart.
 """
 from __future__ import annotations
 
@@ -31,7 +36,8 @@ import torch
 from repro_torch.models import common as cm
 
 BACKWARD_SPANS = {"flash_attention": "repro_torch::flash_attention_backward",
-                  "gla_scan": "repro_torch::gla_scan_backward"}
+                  "gla_scan": "repro_torch::gla_scan_backward",
+                  "moe_dispatch": "repro_torch::moe_dispatch_backward"}
 
 
 def _recompute_grads(fn, inputs: Sequence[Optional[torch.Tensor]],
@@ -113,6 +119,27 @@ class GlaScanFn(torch.autograd.Function):
         with torch.profiler.record_function(BACKWARD_SPANS["gla_scan"]):
             return _recompute_grads(plain, ctx.saved_tensors,
                                     ctx.needs_input_grad, (dy, dstate))
+
+
+class PlainSpanFn(torch.autograd.Function):
+    """``fn(*inputs)``, one tensor out, whose backward recomputes ``fn``
+    under autograd inside the profiler range ``BACKWARD_SPANS[span]``.
+    The gradients are those of autograd through ``fn`` itself; integer
+    inputs (indices, masks) get none."""
+
+    @staticmethod
+    def forward(ctx, span: str, fn, *inputs):
+        ctx.span, ctx.fn = span, fn
+        ctx.save_for_backward(*inputs)
+        return fn(*inputs)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.profiler.record_function(BACKWARD_SPANS[ctx.span]):
+            grads = _recompute_grads(lambda *a: (ctx.fn(*a),),
+                                     ctx.saved_tensors,
+                                     ctx.needs_input_grad[2:], (grad,))
+        return (None, None) + grads
 
 
 def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:

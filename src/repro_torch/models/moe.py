@@ -13,6 +13,7 @@ and are dropped. Every attention call goes through ``attn_impl`` as in
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch import flags
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.autograd import PlainSpanFn
 from repro_torch.models.transformer import (MLP, Attention, Norm,
                                             TransformerLM, _Params, mlp)
 
@@ -93,6 +95,43 @@ def dispatch(cfg: ArchConfig, topi: torch.Tensor, C: int
     return order, dest, keep
 
 
+def _to_experts(xt: torch.Tensor, ts: torch.Tensor, dest: torch.Tensor,
+                rows: int) -> torch.Tensor:
+    """The (rows, d) expert buffer: token ``ts[i]`` at row ``dest[i]``."""
+    buf = torch.zeros((rows, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    buf[dest] = xt[ts]
+    return buf
+
+
+def _combine(y: torch.Tensor, gates: torch.Tensor, order: torch.Tensor,
+             dest: torch.Tensor, keep: torch.Tensor, topi: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """("the reduce") each pair's expert output times its gate (zero where
+    dropped), summed per token: (T, d) in ``dtype``. JAX scatter-adds them
+    into token order (``.at[ts].add``); here each token's k values are
+    added in a fixed order, by rising expert id (the order of the sorted
+    pairs), in ``dtype``, each add rounded as JAX's bf16 scatter-add
+    rounds it. No atomics, so a forward on the card gives the same bits
+    every time, where index_add_ on a CUDA tensor would add in whatever
+    order its atomics land (k = 4 for dbrx)."""
+    T, k = topi.shape
+    d = y.shape[1]
+    yf = torch.cat([y, torch.zeros((1, d), dtype=y.dtype, device=y.device)])
+    g = gates.reshape(-1)[order] * keep.to(gates.dtype)
+    vals = (yf[dest] * g[:, None]).to(dtype)
+    # pair order[i] sits at i: place the values back at (token, choice),
+    # then walk each token's choices by rising expert id
+    by_pair = torch.empty_like(vals)
+    by_pair[order] = vals
+    by_pair = by_pair.reshape(T, k, d)
+    rising = torch.argsort(topi, dim=-1)
+    out = torch.zeros((T, d), dtype=dtype, device=y.device)
+    for j in range(k):
+        out = out + by_pair.gather(
+            1, rising[:, j, None, None].expand(T, 1, d))[:, 0]
+    return out
+
+
 def moe_ffn(cfg: ArchConfig, p: Experts, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss). Sort-based dispatch."""
@@ -107,8 +146,9 @@ def moe_ffn(cfg: ArchConfig, p: Experts, x: torch.Tensor
 
     # scatter tokens into the (E*C, d) expert buffer ("the shuffle"); the
     # spill row E*C takes every dropped pair and is cut off
-    buf = torch.zeros((E * C + 1, d), dtype=xt.dtype, device=x.device)
-    buf[dest] = xt[ts]
+    buf = PlainSpanFn.apply("moe_dispatch",
+                            functools.partial(_to_experts, rows=E * C + 1),
+                            xt, ts, dest)
     h = torch.bmm(buf[:-1].reshape(E, C, d), p.wi)
     if cfg.act == "swiglu":
         gate, up = h.chunk(2, dim=-1)
@@ -116,28 +156,9 @@ def moe_ffn(cfg: ArchConfig, p: Experts, x: torch.Tensor
     else:
         h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
     y = torch.bmm(h, p.wo).reshape(E * C, d)
-
-    # combine ("the reduce"): each pair's expert output times its gate
-    # (zero where dropped). JAX scatter-adds them into token order
-    # (``.at[ts].add``); here each token's k values are added in a fixed
-    # order, by rising expert id (the order of the sorted pairs), in x's
-    # dtype, each add rounded as JAX's bf16 scatter-add rounds it. No
-    # atomics, so a run on the card gives the same bits every time, where
-    # index_add_ on a CUDA tensor would add in whatever order its atomics
-    # land (k = 4 for dbrx)
-    yf = torch.cat([y, torch.zeros((1, d), dtype=y.dtype, device=y.device)])
-    g = gates.reshape(-1)[order] * keep.to(gates.dtype)
-    vals = (yf[dest] * g[:, None]).to(x.dtype)
-    # pair order[i] sits at i: place the values back at (token, choice),
-    # then walk each token's choices by rising expert id
-    by_pair = torch.empty_like(vals)
-    by_pair[order] = vals
-    by_pair = by_pair.reshape(T, k, d)
-    rising = torch.argsort(topi, dim=-1)
-    out = torch.zeros((T, d), dtype=x.dtype, device=x.device)
-    for j in range(k):
-        out = out + by_pair.gather(
-            1, rising[:, j, None, None].expand(T, 1, d))[:, 0]
+    out = PlainSpanFn.apply("moe_dispatch",
+                            functools.partial(_combine, dtype=x.dtype),
+                            y, gates, order, dest, keep, topi)
     return out.reshape(B, S, d), aux
 
 

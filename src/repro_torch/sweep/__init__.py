@@ -1,9 +1,12 @@
 """Monte-Carlo sweeps over the scheduler simulator: cells (the
 ``fabric_contention``, ``elastic_churn`` and ``chaos`` families), the
 lockstep executor whose fabric fills go through the batched CUDA fill
-kernel, and the deterministic aggregation of per-cell metrics (a port of
-``repro/sweep/``; the process pool, the result store and the ``selftest``
-family that probes the pool are not ported yet)."""
+kernel, the process pool of spawned workers with its crash and timeout
+recovery (probed by the ``selftest`` family), the content-addressed
+result store, and the deterministic aggregation of per-cell metrics (a
+port of ``repro/sweep/``)."""
+from repro_torch.sweep.cache import (DEFAULT_STORE_DIR, ResultStore,
+                                     code_fingerprint)
 from repro_torch.sweep.cells import (CELL_FAMILIES, LOCKSTEP_BUILDERS,
                                      CellSpec, make_params, matrix, run_cell,
                                      summary_metrics)
@@ -24,6 +27,7 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
+    "DEFAULT_STORE_DIR", "ResultStore", "code_fingerprint",
     "CELL_FAMILIES", "LOCKSTEP_BUILDERS", "CellSpec", "make_params",
     "matrix", "run_cell", "summary_metrics", "SweepEngine", "SweepStats",
     "aggregate_cells", "aggregate_json", "run_serial",

@@ -4,9 +4,12 @@ A :class:`CellSpec` is a pure value — picklable, JSON-canonical, and the
 *only* input a cell needs. Everything random about a cell is re-derived
 from the spec itself: ``sim_seed`` is a sha256 of the canonical cell key,
 so the trajectory a cell produces is a function of the spec and nothing
-else — not the submission order, not the lane of the lockstep gang it
-runs in. Keys and seeds are those of the JAX package's cells, so the same
-spec names the same simulation in both.
+else — not the worker pool's inherited RNG state, not the submission
+order, not the process or the lane of the lockstep gang it runs in. Keys
+and seeds are those of the JAX package's cells, so the same spec names
+the same simulation in both. (The engine's workers additionally *poison*
+their global RNGs at start so any accidental dependence on inherited
+streams would show up as a determinism failure, not a silent bias.)
 
 Families registered here:
 
@@ -17,8 +20,10 @@ Families registered here:
     under a named churn scenario with its autoscaler;
   * ``chaos`` — the bench_chaos A/B cell: a named fault campaign with the
     detection/response loop on or off;
-  * ``selftest`` — registered so its keys resolve, but not ported yet
-    (it probes the process pool): running one raises.
+  * ``selftest`` — engine-robustness probes that crash or hang the
+    worker process on purpose. Built in (not test-local) because spawned
+    workers import this module fresh and must be able to resolve the
+    family without conftest side effects.
 
 A cell returns a flat ``{metric: value}`` dict — every scalar field of
 ``repro_torch.sim.metrics.Summary`` plus bookkeeping — which is what the
@@ -248,18 +253,49 @@ def _chaos_cell(spec: CellSpec) -> Dict[str, float]:
     return summary_metrics(res)
 
 
-def _not_ported(what: str) -> Callable[[CellSpec], Dict[str, float]]:
-    def cell(spec: CellSpec) -> Dict[str, float]:
-        raise NotImplementedError(
-            f"the {spec.family!r} cell family is not ported yet ({what})")
-    return cell
+def _selftest_cell(spec: CellSpec) -> Dict[str, float]:
+    """Engine-robustness probe. Scenarios:
+
+      * ``ok``           — return a tiny metric dict immediately;
+      * ``crash_once``   — hard-kill the worker (``os._exit``) on the
+        first attempt, succeed on the retry;
+      * ``hang_once``    — sleep past any sane cell timeout on the
+        first attempt, succeed on the retry;
+      * ``crash_always`` — hard-kill the worker on every attempt (the
+        poisoned-cell path).
+
+    "First attempt" is tracked with a flag file under the required
+    ``flag_dir`` param — worker processes share no memory, so the
+    filesystem is the only attempt counter a retried cell can see."""
+    import os
+    import time
+    metrics = {"ok": 1.0, "seed": float(spec.seed)}
+    if spec.scenario == "ok":
+        return metrics
+    if spec.scenario == "crash_always":
+        os._exit(17)
+    if spec.scenario not in ("crash_once", "hang_once"):
+        raise ValueError(f"unknown selftest scenario {spec.scenario!r}")
+    flag_dir = spec.param("flag_dir")
+    if flag_dir is None:
+        raise ValueError("selftest crash_once/hang_once cells need a "
+                         "flag_dir param")
+    flag = os.path.join(str(flag_dir),
+                        f"{stable_hash(spec.key()):x}.attempted")
+    if not os.path.exists(flag):
+        with open(flag, "w") as f:
+            f.write(spec.key())
+        if spec.scenario == "crash_once":
+            os._exit(17)
+        time.sleep(float(spec.param("hang_s", 600.0)))
+    return metrics
 
 
 CELL_FAMILIES: Dict[str, Callable[[CellSpec], Dict[str, float]]] = {
     "fabric_contention": _fabric_contention_cell,
     "elastic_churn": _elastic_churn_cell,
     "chaos": _chaos_cell,
-    "selftest": _not_ported("probes the process pool"),
+    "selftest": _selftest_cell,
 }
 
 #: families the lockstep executor can drive: builder(spec) -> (sim,

@@ -13,6 +13,12 @@ leaves carry the stacked L dim, so every layer leaf decays (norm scales,
 biases, ``ln_x``, ``u`` and ``a_log`` included), as does every leaf of
 encdec's stacked encoder, and of the other leaves only the matrices do.
 ``decays`` reproduces that by name.
+
+A leaf of more than ``CHUNK`` elements is updated, and its squares summed,
+in flat pieces of ``CHUNK``: the f32 temporaries of one update (up to
+four at once) would otherwise be the leaf's size each, 8.5 GB for one
+2.1 B-param expert leaf of dbrx-132b. The update is elementwise, so its
+pieces give the same bits; the norm adds the pieces' sums.
 """
 from __future__ import annotations
 
@@ -21,6 +27,22 @@ import math
 from typing import Dict, Mapping, Tuple
 
 import torch
+
+#: the largest piece of a leaf the update and the norm take at once, in
+#: elements (256 MB of f32)
+CHUNK = 1 << 26
+
+
+def _pieces(*ts: torch.Tensor):
+    """``ts`` (same numel) as one tuple when small, else tuples of equal
+    flat slices of CHUNK elements, views that write through."""
+    n = ts[0].numel()
+    if n <= CHUNK or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, n, CHUNK):
+        yield tuple(f[i:i + CHUNK] for f in flat)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,8 +88,8 @@ def adamw_init(params: Mapping[str, torch.Tensor],
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree.values()))
+    return torch.sqrt(sum(torch.sum(torch.square(piece.float()))
+                          for x in tree.values() for (piece,) in _pieces(x)))
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -97,18 +119,20 @@ def adamw_update(cfg: OptConfig, grads: Mapping[str, torch.Tensor],
     bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
     bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
     for name, p in params.items():
-        g = grads[name].float() * scale
-        m, v = state["m"][name], state["v"][name]
-        m32, v32 = m.float(), v.float()  # the state itself when f32
-        m32.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-        v32.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-        del g
-        delta = (m32 / bc1).div_(torch.sqrt(v32 / bc2).add_(cfg.eps))
-        if cfg.weight_decay > 0 and decays(name, p):
-            delta.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr * delta)
-        if m32 is not m:
-            m.copy_(m32)
-            v.copy_(v32)
+        wd = cfg.weight_decay > 0 and decays(name, p)
+        for pp, gp, m, v in _pieces(p, grads[name], state["m"][name],
+                                    state["v"][name]):
+            g = gp.float() * scale
+            m32, v32 = m.float(), v.float()  # the state itself when f32
+            m32.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+            v32.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+            del g
+            delta = (m32 / bc1).div_(torch.sqrt(v32 / bc2).add_(cfg.eps))
+            if wd:
+                delta.add_(cfg.weight_decay * pp.float())
+            pp.copy_(pp.float() - lr * delta)
+            if m32 is not m:
+                m.copy_(m32)
+                v.copy_(v32)
     state["step"] = step
     return state, {"grad_norm": gnorm, "lr": lr}

@@ -406,3 +406,63 @@ def test_init_cache_matches_jax(arch, dtype):
         assert str(g.dtype).split(".")[-1] == str(w.dtype), f
         np.testing.assert_array_equal(g.float().numpy(),
                                       w.astype(np.float32), err_msg=f)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "arctic-480b"])
+def test_moe_backward_matches_jax_and_drops_get_no_gradient(arch):
+    """The moe FFN's gradients (x, router, wi, wo) agree with jax.grad of
+    JAX's ``moe_ffn`` where capacity drops pairs; an expert gets exactly
+    zero weight gradient from a token whose pair there was dropped; and
+    the dispatch/combine backward runs inside its profiler span."""
+    from repro_torch.kernels.autograd import BACKWARD_SPANS
+    jcfg, tcfg = _cfgs(arch)
+    jcfg = dataclasses.replace(jcfg, capacity_factor=0.5)
+    tcfg = dataclasses.replace(tcfg, capacity_factor=0.5)
+    rng = np.random.RandomState(4)
+    T, d, E, k = 256, tcfg.d_model, tcfg.n_experts, tcfg.moe_topk
+    fin = 2 * tcfg.d_ff if tcfg.act == "swiglu" else tcfg.d_ff
+    p = {"router": (rng.randn(d, E) / np.sqrt(d)).astype(np.float32),
+         "wi": (rng.randn(E, d, fin) / np.sqrt(d)).astype(np.float32),
+         "wo": (rng.randn(E, tcfg.d_ff, d) / np.sqrt(tcfg.d_ff)
+                ).astype(np.float32)}
+    x = rng.randn(2, T // 2, d).astype(np.float32) + 1.0
+    p["router"][:, 0] += 3.0 / d          # overflow expert 0 (C = 128)
+    w = rng.randn(2, T // 2, d).astype(np.float32)
+
+    def jloss(jp, jx):
+        return jnp.sum(jax_moe.moe_ffn(jcfg, jp, jx)[0] * w)
+
+    jg = jax.grad(jloss, argnums=(0, 1))(
+        {n: jnp.asarray(v) for n, v in p.items()}, jnp.asarray(x))
+    experts = moe.Experts(tcfg, torch.device("cpu"))
+    for n, v in p.items():
+        getattr(experts, n).data.copy_(torch.from_numpy(v))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        (moe.moe_ffn(tcfg, experts, tx)[0] * torch.from_numpy(w)).sum(
+            ).backward()
+    assert BACKWARD_SPANS["moe_dispatch"] in {e.name for e in prof.events()}
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jg[1]),
+                               atol=ATOL, rtol=RTOL)
+    for n in p:
+        np.testing.assert_allclose(getattr(experts, n).grad.numpy(),
+                                   np.asarray(jg[0][n]), atol=ATOL,
+                                   rtol=RTOL, err_msg=n)
+
+    # a token whose pair at expert 0 was dropped: its output row alone
+    # gives expert 0's weights no gradient (its other choices are other
+    # experts), while a kept token's row does
+    C = moe.capacity(tcfg, T)
+    _, topi, _ = moe.route(tcfg, experts.router,
+                           torch.from_numpy(x).reshape(T, d))
+    order, _, keep = moe.dispatch(tcfg, topi, C)
+    dropped = sorted({int(i) // k for i in order[~keep]})
+    kept0 = [int(i) // k for i in order[keep] if topi.reshape(-1)[i] == 0]
+    assert dropped and kept0
+    for t, want_zero in ((dropped[0], True), (kept0[0], False)):
+        experts.zero_grad(set_to_none=True)
+        out, _ = moe.moe_ffn(tcfg, experts, torch.from_numpy(x))
+        out.reshape(T, d)[t].sum().backward()
+        g0 = experts.wi.grad[0].abs().max().item()
+        assert (g0 == 0.0) == want_zero, (t, g0)

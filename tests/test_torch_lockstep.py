@@ -113,15 +113,19 @@ def test_sweep_engine_backends_agree():
     assert st.n_cells == st.n_executed == 2
 
 
-def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="process pool"):
-        SweepEngine(workers=2)
-    with pytest.raises(NotImplementedError, match="result store"):
-        SweepEngine(store=object())
+def test_unported_parts_raise(tmp_path):
+    """What the engine still refuses: an unknown backend, and the lockstep
+    executor without a card. The process pool, the result store and the
+    ``selftest`` family, once refused here, are ported: they construct,
+    and a selftest cell gives JAX's metrics."""
+    from repro_torch.sweep import ResultStore
+    eng = SweepEngine(workers=2, store=ResultStore(str(tmp_path)))
+    assert eng.workers == 2 and eng.store is not None
+    spec = CellSpec("selftest", "joss-t", "ok", 0)
+    assert run_cell(spec) == jax_run_cell(
+        jax_matrix("selftest", ("joss-t",), ("ok",), 1)[0])
     with pytest.raises(ValueError, match="unknown sweep backend"):
         SweepEngine(backend="bogus")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_cell(CellSpec("selftest", "joss-t", "ok", 0))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             LockstepExecutor()

@@ -477,3 +477,41 @@ def test_train_lm_flow_checkpoints_and_resumes(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from step 6" in out and "step   10  loss" in out
     assert "final checkpoint: step 10" in out
+
+
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_update_in_pieces_gives_the_same_bits(monkeypatch, state_dtype):
+    """Leaves above ``optimizer.CHUNK`` elements are updated in flat
+    pieces: with CHUNK cut to 37, every leaf of a bf16 tree (odd sizes
+    included) takes the piecewise path, and params and moments come out
+    bit-equal to the whole-leaf update (no clipping: the clip scale comes
+    from the norm, which adds the pieces' sums and so agrees only to f32
+    rounding)."""
+    from repro_torch.train import optimizer as opt
+    gen = torch.Generator().manual_seed(11)
+    shapes = {"layers.0.w": (13, 29), "layers.0.b": (29,), "embed": (50, 8),
+              "norm": (8,)}
+    cfg = OptConfig(lr=0.05, warmup_steps=1, total_steps=10,
+                    weight_decay=0.1, grad_clip=0.0, state_dtype=state_dtype)
+    grads = [{n: torch.randn(s, generator=gen).to(torch.bfloat16)
+              for n, s in shapes.items()} for _ in range(3)]
+    init = {n: torch.randn(s, generator=gen).to(torch.bfloat16)
+            for n, s in shapes.items()}
+    out = []
+    for chunk in (opt.CHUNK, 37):
+        monkeypatch.setattr(opt, "CHUNK", chunk)
+        params = {n: t.clone() for n, t in init.items()}
+        state = adamw_init(params, state_dtype)
+        norms = []
+        for g in grads:
+            state, met = adamw_update(cfg, g, state, params)
+            norms.append(float(met["grad_norm"]))
+        out.append((params, state, norms))
+    (p1, s1, n1), (p2, s2, n2) = out
+    for n in shapes:
+        assert torch.equal(p1[n], p2[n]), n
+        assert torch.equal(s1["m"][n], s2["m"][n])
+        assert torch.equal(s1["v"][n], s2["v"][n])
+    assert n2 == pytest.approx(n1, rel=1e-6)
+    monkeypatch.setattr(opt, "CHUNK", 37)
+    assert float(global_norm(grads[0])) == pytest.approx(n1[0], rel=1e-6)
