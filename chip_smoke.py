@@ -11,6 +11,14 @@ Phases, each failing the run with a non-zero exit:
                of each corpus kind (equal keys and counts, bit-equal FP),
                then 4 shards of one 128 MiB HDFS block per kind: FP mean
                and std, tokens/s, the paper's observations
+  mesh       - the multi-device layer at world size 1 on NCCL, over a
+               (1, 1) ('pod', 'data') DeviceMesh: each collective returns
+               its input bit for bit; _partition_pack on the card equals
+               it on the CPU for one shard of each job and corpus kind;
+               mesh_mapreduce under JoSS policy A over the mapreduce
+               phase's 4 blocks a kind equals the merge of each block's
+               local_mapreduce bit for bit, nothing dropped, no record
+               across a pod
   fill       - the batched progressive fill kernel's two variants (reg,
                the chosen one, and smem, the first design) against its
                plain version on the card and the scalar reference on the
@@ -81,7 +89,10 @@ Phases, each failing the run with a non-zero exit:
                frames, internvl2's patches) and then one batch repeated
                (its loss must fall); launches counted per run, one step
                profiled; then qwen3-4b at 4 layers: n_micro 2 vs 1, int8
-               compression, a checkpoint round trip
+               compression, a checkpoint round trip; then dbrx-132b's
+               one-layer backward twice on one batch, every gradient's
+               bits compared (the MoE dispatch's gather backward adds
+               each token's k rows)
 Each phase prints JSON lines; the run ends with the nvidia-smi line, the
 kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
@@ -103,8 +114,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.autograd import DeviceType
+from torch.distributed.device_mesh import init_device_mesh
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -126,12 +139,15 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import gla_scan as gs  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels.autograd import BACKWARD_SPANS  # noqa: E402
+from repro_torch.mapreduce import engine as mre  # noqa: E402
+from repro_torch.mapreduce.jobs import EMPTY  # noqa: E402
 from repro_torch.models import (build_model, prefix_len,  # noqa: E402
                                 side_inputs)
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models.recurrence import gla_chunked  # noqa: E402
 from repro_torch.obs import TelemetryConfig  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
+from repro_torch.sharding import collectives as col  # noqa: E402
 from repro_torch.sim import experiment, golden  # noqa: E402
 from repro_torch.sim import workloads as wl  # noqa: E402
 from repro_torch.sim.cluster_sim import SimConfig, Simulator  # noqa: E402
@@ -285,7 +301,10 @@ def block_shard(kind, seed, mean_len):
 
 
 def phase_mapreduce():
+    """Returns {kind: (tokens, lengths)}, the 4 padded block shards a kind
+    on the card, for phase mesh."""
     mean_len = {}
+    blocks = {}
     for kind in MR_KINDS:
         tok, lng = mr.corpus(kind, MR_EQ_TOKENS, seed=2000)
         mean_len[kind] = float(lng.mean())
@@ -349,8 +368,7 @@ def phase_mapreduce():
                   and float(fps.max()) * max(block) < 2 ** 31,
                   f"mapreduce {name} on {kind}: FP or byte sums out of "
                   f"range")
-        del st, sl
-        torch.cuda.empty_cache()
+        blocks[kind] = (st, sl)
     # benchmarks/bench_filtering.py's paper observations, at the real size
     obs = {"grep_web_below_0.5": fp[("Grep", "web")][0] < 0.5,
            "permu_non_web_near_3": abs(fp[("Permu", "non-web")][0] - 3.0)
@@ -361,6 +379,128 @@ def phase_mapreduce():
     emit(phase="mapreduce", check="paper_observations", **obs)
     check(all(obs.values()), f"the paper's FP observations fail at the "
                              f"128 MiB block size: {obs}")
+    return blocks
+
+
+# ------------------------------------------------------------------ mesh --
+# the multi-device layer on one card, world size 1 on NCCL: what a rank
+# does is all there (map, pack, all_to_all, reduce), each collective
+# returning its input. Policy A shards the blocks over ('pod', 'data') and
+# shuffles over 'data'. The pack check buckets by MESH_PACK_DEST
+# destinations, as a rank of an 8-rank shuffle would
+MESH_PACK_DEST = 8
+MESH_SLACK = 4          # mesh_mapreduce's default
+
+
+def bit_equal(a, b):
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8),
+                            b.reshape(-1).view(torch.uint8)))
+
+
+def merge_local(spec, st, sl):
+    """Each block's local_mapreduce, merged by key: (keys, counts)."""
+    ks, vs = [], []
+    for t, l in zip(st, sl):
+        k, v, n = mr.local_mapreduce(spec, t, l)
+        ks.append(k[:int(n)])
+        vs.append(v[:int(n)])
+    k, v = torch.cat(ks), torch.cat(vs)
+    del ks, vs
+    uk, uv, _, n = mre._sort_reduce(k, v, torch.zeros_like(v),
+                                    combined_bytes=False)
+    n = int(n)
+    return uk[:n].clone(), uv[:n].clone()
+
+
+def mesh_checks(blocks):
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("pod", "data"))
+    x = torch.randn((8, 4096), generator=torch.Generator(device=DEV)
+                    .manual_seed(21), device=DEV)
+    got = {"hierarchical_psum": col.hierarchical_psum(x, mesh),
+           "flat_psum": col.flat_psum(x, mesh),
+           "grad_allreduce": col.make_grad_allreduce(mesh)({"g": x})["g"],
+           "grad_allreduce_flat": col.make_grad_allreduce(
+               mesh, hierarchical=False)({"g": x})["g"],
+           "two_hop_all_to_all": col.two_hop_all_to_all(
+               x[None], mesh, pod_axis="pod", inner_axis="data")[0]}
+    same = {name: bit_equal(y, x) for name, y in got.items()}
+    emit(phase="mesh", part="collectives", backend=dist.get_backend(),
+         nccl=".".join(map(str, torch.cuda.nccl.version())),
+         world_size=dist.get_world_size(), mesh=dict(pod=1, data=1),
+         shape=list(x.shape), bit_equal=same)
+    check(all(same.values()), f"a collective at world size 1 changed its "
+                              f"input: {same}")
+    # _partition_pack on the card against the CPU, one shard a job and kind
+    for kind in MR_KINDS:
+        tok, lng = mr.corpus(kind, MR_EQ_TOKENS, seed=2000)
+        host = (torch.from_numpy(tok), torch.from_numpy(lng))
+        for name, spec in mr.JOBS.items():
+            cap_dest = MESH_SLACK * -(-MR_EQ_TOKENS * spec.cap_mult
+                                      // MESH_PACK_DEST)
+            packs = []
+            for dev in ("cpu", DEV):
+                kv = mre.run_map(spec, host[0].to(dev), host[1].to(dev), 0)
+                packs.append(mre._partition_pack(kv, MESH_PACK_DEST,
+                                                 cap_dest))
+            equal = all(bit_equal(a, b.cpu()) for a, b in zip(*packs))
+            emit(phase="mesh", part="partition_pack", kind=kind, job=name,
+                 tokens=MR_EQ_TOKENS, n_dest=MESH_PACK_DEST,
+                 cap_dest=cap_dest, dropped=int(packs[1][2]),
+                 bit_equal_cpu=equal)
+            check(equal, f"_partition_pack {name} on {kind}: the card and "
+                         f"the CPU disagree")
+            del packs
+    # mesh_mapreduce, policy A, over the blocks
+    for kind, (st, sl) in blocks.items():
+        for name, spec in mr.JOBS.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            res = mr.mesh_mapreduce(spec, st, sl, mesh, shuffle_axes=("data",),
+                                    shard_axes=("pod", "data"),
+                                    slack=MESH_SLACK)
+            rows = mr.gather_groups(res, mesh, ("pod", "data"))
+            n = int(rows.n_unique[0])
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            slots = rows.unique_keys.shape[1]
+            keys = rows.unique_keys[0, :n].clone()
+            counts = rows.counts[0, :n].clone()
+            tail_empty = bool((rows.unique_keys[0, n:] == EMPTY).all()
+                              and (rows.counts[0, n:] == 0).all())
+            dropped, cross = int(rows.dropped[0]), int(rows.cross_pod[0])
+            records = int(rows.records[0])
+            del res, rows
+            torch.cuda.empty_cache()
+            want_k, want_v = merge_local(spec, st, sl)
+            equal = bit_equal(keys, want_k) and bit_equal(counts, want_v)
+            emit(phase="mesh", part="mesh_mapreduce", policy="A", kind=kind,
+                 job=name, shards=st.shape[0], shard_tokens=st.shape[1],
+                 records=records, slots=slots, n_unique=n, dropped=dropped,
+                 cross_pod=cross, seconds=secs, peak_mem_gb=peak,
+                 equal_local_merge=equal, tail_empty=tail_empty,
+                 reduced=[])
+            check(equal and tail_empty and dropped == 0 and cross == 0,
+                  f"mesh_mapreduce {name} on {kind}: equal {equal}, tail "
+                  f"{tail_empty}, dropped {dropped}, cross-pod {cross}")
+            del keys, counts, want_k, want_v
+            torch.cuda.empty_cache()
+
+
+def phase_mesh(blocks):
+    """World size 1 on NCCL, the rendezvous a file of a temporary
+    directory; the process group is destroyed however the phase ends."""
+    rendezvous = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/rv",
+                            world_size=1, rank=0)
+    try:
+        mesh_checks(blocks)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+        blocks.clear()
+        torch.cuda.empty_cache()
 
 
 # ----------------------------------------------------------------- fill --
@@ -2421,6 +2561,44 @@ def run_train_small():
     torch.cuda.empty_cache()
 
 
+def moe_grad_bits():
+    """dbrx-132b at one layer (all 16 experts, top-4), bf16: the loss's
+    backward twice on one batch from the same params, every gradient
+    leaf compared bit for bit. The dispatch gathers each token k times,
+    so autograd's backward of that gather adds k rows a token."""
+    arch = "dbrx-132b"
+    B, S = TRAIN[arch][1:3]
+    cfg = get_config(arch).scaled(n_layers=1)
+    model = build_model(cfg, device=DEV)
+    model.init_params(torch.Generator(device=DEV).manual_seed(12))
+    toks = torch.randint(0, cfg.vocab, (B, S), device=DEV,
+                         generator=torch.Generator(device=DEV)
+                         .manual_seed(13))
+    grads, losses, secs = [], [], []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model.loss({"tokens": toks})
+        loss.backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.detach())
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    differ = {n: (g - grads[1][n]).abs().max().item()
+              for n, g in grads[0].items() if not bit_equal(g, grads[1][n])}
+    emit(phase="train", check="moe_grad_bits", arch=arch,
+         n_layers=cfg.n_layers, n_experts=cfg.n_experts, topk=cfg.moe_topk,
+         batch=B, seq_len=S, dtype=cfg.dtype, reduced=reduced(arch, cfg),
+         leaves=len(grads[0]), loss_bit_equal=bit_equal(*losses),
+         leaves_differing=sorted(differ), max_abs_diff=differ,
+         seconds=secs)
+    check(bit_equal(*losses) and not differ,
+          f"{arch}: two backwards of one batch differ in {sorted(differ)}")
+    del model, grads, losses
+    torch.cuda.empty_cache()
+
+
 def phase_train():
     """The training runs with every launch count set to 0 just before each
     and read just after; returns ({arch: launches}, {arch: profile})."""
@@ -2428,6 +2606,7 @@ def phase_train():
     for arch in TRAIN:
         launches[arch], profiles[arch] = run_train(arch)
     run_train_small()
+    moe_grad_bits()
     return launches, profiles
 
 
@@ -2500,7 +2679,9 @@ def main() -> None:
          libraries=[p.name for p in libs], ptxas=ptxas)
 
     done = {}
-    runs = {"mapreduce": phase_mapreduce, "fill": phase_fill,
+    runs = {"mapreduce": phase_mapreduce,
+            "mesh": lambda: phase_mesh(done.pop("mapreduce")),
+            "fill": phase_fill,
             "lockstep": phase_lockstep, "scheduler": phase_scheduler,
             "sweep_pool": phase_sweep_pool, "kernel": phase_kernel,
             "wiring": phase_wiring,

@@ -10,6 +10,11 @@ MapReduce data plane's local half (``mapreduce/``), and the LM zoo's
 JoSS-routed serving and training paths (``serve/``, ``train/``,
 ``models/``), every attention call through the hand-written flash-attention
 kernel and every GLA scan through the hand-written GLA kernel
-(``kernels/csrc``). The multi-device layer (the mesh, sharding and the
-expert-parallel MoE) is not ported yet.
+(``kernels/csrc``). Of the multi-device layer it has, on
+``torch.distributed``, the models' param specs with logical axes, the
+sharding rules and their DTensor placements (``sharding/``), ZeRO-1 state
+axes (``train/optimizer.py``), the hierarchical collectives, the mesh
+builders (``launch/mesh.py``) and the MapReduce mesh shuffle
+(``mapreduce.mesh_mapreduce``). Not ported yet: the expert-parallel MoE,
+the sharded train step, and the multi-pod dry run.
 """

@@ -11,7 +11,7 @@ encdec's encoder's) and renames; nothing is transposed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -85,31 +85,43 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
-def params_to_numpy(cfg: ArchConfig,
-                    state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
-    """The inverse of ``params_from_jax``: the port's per-layer leaves
-    (``layers.{i}.<path>``, ``encoder.{i}.<path>``) restacked to (L, ...)
-    under the JAX tree's nested dicts, every leaf a numpy array (bf16 as
-    f32)."""
+def restack(cfg: ArchConfig, named: Mapping[str, Any],
+            stack: Callable[[List[Any]], Any],
+            leaf: Callable[[Any], Any] = lambda x: x) -> Dict[str, Any]:
+    """The port's names -> the JAX tree: the per-layer entries
+    (``layers.{i}.<path>``, ``encoder.{i}.<path>``) of each path, in layer
+    order, become ``stack(entries)`` at ``<top>.<path>``; every other entry
+    becomes ``leaf(entry)`` at its dotted path. Raises unless each stacked
+    path has layers 0..L-1."""
     depths = stacked_depths(cfg)
     tree: Dict[str, Any] = {}
     per_layer: Dict[Tuple[str, str], list] = {}
-    for name, t in state_dict.items():
+    for name, t in named.items():
         parts = name.split(".")
         if parts[0] in depths:
             per_layer.setdefault((parts[0], ".".join(parts[2:])), []).append(
                 (int(parts[1]), t))
         else:
-            _put(tree, parts, _to_numpy(t))
+            _put(tree, parts, leaf(t))
     for (top, path), items in per_layer.items():
         items.sort(key=lambda it: it[0])
         L = depths[top]
         if [i for i, _ in items] != list(range(L)):
             raise ValueError(f"{top}.*.{path}: layers {[i for i, _ in items]}"
                              f", expected 0..{L - 1}")
-        _put(tree, [top] + path.split("."),
-             np.stack([_to_numpy(t) for _, t in items]))
+        _put(tree, [top] + path.split("."), stack([t for _, t in items]))
     return tree
+
+
+def params_to_numpy(cfg: ArchConfig,
+                    state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``params_from_jax``: the port's per-layer leaves
+    (``layers.{i}.<path>``, ``encoder.{i}.<path>``) restacked to (L, ...)
+    under the JAX tree's nested dicts, every leaf a numpy array (bf16 as
+    f32)."""
+    return restack(cfg, state_dict,
+                   lambda ts: np.stack([_to_numpy(t) for t in ts]),
+                   _to_numpy)
 
 
 def _put(tree: Dict[str, Any], path, leaf) -> None:

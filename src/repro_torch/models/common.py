@@ -1,21 +1,152 @@
-"""Shared model machinery: norms, RoPE, and attention implementations
-(reference, chunked online-softmax, banded sliding-window), as plain torch.
+"""Shared model machinery: param specs with logical axes, norms, RoPE, and
+attention implementations (reference, chunked online-softmax, banded
+sliding-window), as plain torch.
 
 Counterpart of ``repro/models/common.py``. Layouts are the JAX package's:
 q (B, Sq, H, D), k/v (B, Sk, G, D) with H % G == 0, positions (S,).
+
+Logical axes (mapped to mesh axes by ``repro_torch.sharding``) are JAX's:
+batch, seq, embed, qkv, heads, kv_heads, mlp, vocab, experts, expert_in,
+expert_mlp, state, frontend, vis, and ``layers`` for the leading dim of a
+stacked layer leaf. A spec tree is a nested dict of ``ParamSpec``; where
+JAX has a ``ShapeDtypeStruct``, the port has a tensor on the ``meta``
+device, which holds a shape and a dtype and no storage.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
 from functools import partial
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import flags
+from repro_torch.device import DeviceLike, resolve_device
+
+
+# ------------------------------------------------------------------ specs --
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Declares one parameter: shape, dtype, init style, logical axes."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    init: str              # 'normal', 'zeros', 'ones', 'embed', 'scaled'
+    axes: Tuple[Optional[str], ...]
+    init_scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} "
+                             f"differ in rank")
+
+    def stacked(self, L: int) -> "ParamSpec":
+        """The spec of L of these stacked on a leading ``layers`` dim."""
+        return dataclasses.replace(self, shape=(L,) + tuple(self.shape),
+                                   axes=("layers",) + tuple(self.axes))
+
+
+ParamTree = Dict[str, Any]   # nested dict of ParamSpec / tensors
+
+
+def _is_node(x: Any) -> bool:
+    """A dict or a dataclass record (a cache) is a tree node; a ParamSpec,
+    a tensor or an axes tuple is a leaf."""
+    return isinstance(x, dict) or (dataclasses.is_dataclass(x)
+                                   and not isinstance(x, (type, ParamSpec)))
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``), keeping dicts and dataclass records."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if _is_node(tree):
+        return dataclasses.replace(tree, **{
+            f.name: tree_map(fn, getattr(tree, f.name),
+                             *(getattr(r, f.name) for r in rest))
+            for f in dataclasses.fields(tree)})
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree: Any) -> list:
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def shape_struct(shape: Tuple[int, ...], dtype: torch.dtype
+                 ) -> torch.Tensor:
+    """JAX's ShapeDtypeStruct: a tensor on ``meta`` (no allocation)."""
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def shape_tree(specs: ParamTree) -> ParamTree:
+    """Meta tensors of each spec's shape and dtype (dry-run: no
+    allocation)."""
+    return tree_map(lambda s: shape_struct(s.shape, s.dtype), specs)
+
+
+def axes_tree(specs: ParamTree) -> ParamTree:
+    return tree_map(lambda s: s.axes, specs)
+
+
+def count_params(specs: ParamTree) -> int:
+    return sum(int(np.prod(s.shape)) for s in tree_leaves(specs))
+
+
+# a leaf above this many elements draws its f32 noise one slice along dim
+# 0 at a time: arctic-480b's expert leaf wi (128, 7168, 9728) would need a
+# 35.7 GB temporary beside 55.6 GB of weights. Every leaf of the dense and
+# recurrent families is below it, so their draws are unchanged
+NOISE_SLICE_ELEMS = 1 << 30
+
+
+@torch.no_grad()
+def init_param(p: torch.Tensor, init: str, generator: torch.Generator,
+               scale: float = 1.0) -> None:
+    """Fill ``p`` with the distribution of JAX ``init_param`` (f32 normal,
+    scaled, then cast), drawn from ``generator`` on p's device."""
+    if init == "zeros":
+        p.zero_()
+        return
+    if init == "ones":
+        p.fill_(1.0)
+        return
+    if init == "embed":       # 1/sqrt(d) keeps tied-embedding logits O(1)
+        std = scale / math.sqrt(p.shape[-1])
+    elif init == "scaled":    # fan-in scaled
+        std = scale / math.sqrt(p.shape[-2] if p.dim() >= 2
+                                else p.shape[-1])
+    else:                     # 'normal'
+        std = 0.02 * scale
+    if p.numel() <= NOISE_SLICE_ELEMS:
+        noise = torch.randn(p.shape, generator=generator, device=p.device,
+                            dtype=torch.float32)
+        p.copy_(noise.mul_(std))
+        return
+    for part in p:
+        part.copy_(torch.randn(part.shape, generator=generator,
+                               device=p.device,
+                               dtype=torch.float32).mul_(std))
+
+
+def init_tree(specs: ParamTree, generator: torch.Generator, *,
+              device: DeviceLike = None) -> ParamTree:
+    """Materialize every spec on ``device`` (the card unless named), one
+    leaf after another from ``generator``."""
+    dev = resolve_device(device)
+
+    def one(s: ParamSpec) -> torch.Tensor:
+        t = torch.empty(s.shape, dtype=s.dtype, device=dev)
+        init_param(t, s.init, generator, s.init_scale)
+        return t
+    return tree_map(one, specs)
 
 
 # ------------------------------------------------------------------- norms --

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import (MLP, Attention, Block, Norm,
@@ -71,7 +71,7 @@ class Frontend(_Params):
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
         self.add("proj", (cfg.frontend_dim, cfg.d_model), cfg.tdtype,
-                 "scaled", device)
+                 "scaled", device, axes=("frontend", "embed"))
 
 
 class EncDecBlock(nn.Module):
@@ -104,6 +104,45 @@ class EncDecLM(TransformerLM):
 
     def make_block(self, device: torch.device) -> nn.Module:
         return EncDecBlock(self.cfg, device)
+
+    # -------------------------------------------------------------- specs --
+    def encoder_layer_specs(self) -> cm.ParamTree:
+        return self.param_specs()["encoder"]
+
+    def cache_specs(self, B: int, S_max: int) -> EncDecCache:
+        """The cross K/V hold S_max // 2 positions, as JAX's."""
+        cfg = self.cfg
+        G, hd = cfg.n_kv_heads, cfg.hdim
+        kv = (cfg.n_layers, B, S_max, G, hd)
+        xkv = (cfg.n_layers, B, S_max // 2, G, hd)
+        return EncDecCache(k=cm.shape_struct(kv, cfg.tdtype),
+                           v=cm.shape_struct(kv, cfg.tdtype),
+                           kpos=cm.shape_struct((S_max,), torch.int32),
+                           xk=cm.shape_struct(xkv, cfg.tdtype),
+                           xv=cm.shape_struct(xkv, cfg.tdtype))
+
+    def cache_axes(self) -> EncDecCache:
+        kv = ("layers", "batch", "cache_seq", "kv_heads", None)
+        return EncDecCache(k=kv, v=kv, kpos=(None,), xk=kv, xv=kv)
+
+    def input_specs(self, cell: ShapeCell) -> Dict[str, object]:
+        """As JAX's: a decode cell's cache spans the whole seq_len."""
+        cfg = self.cfg
+        B, S = cell.global_batch, cell.seq_len
+        if cell.kind in ("train", "prefill"):
+            return {"tokens": cm.shape_struct((B, S), torch.int32),
+                    "frames": cm.shape_struct((B, S, cfg.frontend_dim),
+                                              cfg.tdtype)}
+        return {"tokens": cm.shape_struct((B, 1), torch.int32),
+                "pos": cm.shape_struct((), torch.int32),
+                "cache": self.cache_specs(B, S)}
+
+    def input_axes(self, cell: ShapeCell) -> Dict[str, object]:
+        if cell.kind in ("train", "prefill"):
+            return {"tokens": ("batch", "seq"),
+                    "frames": ("batch", "seq", "frontend")}
+        return {"tokens": ("batch", None), "pos": (),
+                "cache": self.cache_axes()}
 
     # ------------------------------------------------------------ encoder --
     def _encoder_body(self, p: Block, h: torch.Tensor,

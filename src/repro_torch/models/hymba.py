@@ -19,16 +19,18 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike
 from repro_torch.models import common as cm
+from repro_torch.models.common import ParamSpec
 from repro_torch.models.recurrence import gla_step, make_gla
-from repro_torch.models.transformer import (MLP, Attention, Norm,
+from repro_torch.models.transformer import (META, MLP, Attention, Norm,
                                             TransformerLM, _Params,
                                             apply_norm, attn_out,
                                             causal_attention,
                                             decode_attention_raw, mlp,
-                                            project_qkv, ring_layout)
+                                            project_qkv, ring_layout,
+                                            stack_specs)
 
 
 class SSM(_Params):
@@ -36,14 +38,16 @@ class SSM(_Params):
         super().__init__()
         d, dt, f32 = cfg.d_model, cfg.tdtype, torch.float32
         H, hd, N = cfg.n_heads, cfg.hdim, cfg.ssm_state
-        self.add("wx", (d, H * hd), dt, "scaled", device)
-        self.add("wB", (d, H * N), dt, "scaled", device)
-        self.add("wC", (d, H * N), dt, "scaled", device)
-        self.add("wdt", (d, H), dt, "scaled", device)
-        self.add("a_log", (H, N), f32, "zeros", device)
-        self.add("dt_bias", (H,), f32, "zeros", device)
-        self.add("wo", (H * hd, d), dt, "scaled", device)
-        self.add("norm", (H * hd,), f32, "ones", device)
+        self.add("wx", (d, H * hd), dt, "scaled", device,
+                 axes=("embed", "qkv"))
+        for name, width in (("wB", H * N), ("wC", H * N), ("wdt", H)):
+            self.add(name, (d, width), dt, "scaled", device,
+                     axes=("embed", "heads"))
+        self.add("a_log", (H, N), f32, "zeros", device, axes=("heads", None))
+        self.add("dt_bias", (H,), f32, "zeros", device, axes=("heads",))
+        self.add("wo", (H * hd, d), dt, "scaled", device,
+                 axes=("qkv", "embed"))
+        self.add("norm", (H * hd,), f32, "ones", device, axes=("qkv",))
 
 
 class HymbaBlock(_Params):
@@ -55,7 +59,7 @@ class HymbaBlock(_Params):
         self.ln1 = Norm(cfg, device)
         self.attn = Attention(cfg, device)
         self.add("attn_norm", (cfg.n_heads * cfg.hdim,), torch.float32,
-                 "ones", device)
+                 "ones", device, axes=("qkv",))
         self.ssm = SSM(cfg, device)
         self.ln2 = Norm(cfg, device)
         self.mlp = MLP(cfg, device)
@@ -84,6 +88,9 @@ class HymbaLM(TransformerLM):
 
     def make_block(self, device: torch.device) -> nn.Module:
         return HymbaBlock(self.cfg, device)
+
+    def ssm_specs(self, L: int) -> Dict[str, ParamSpec]:
+        return stack_specs(SSM(self.cfg, META), L)
 
     # ------------------------------------------------------------ SSM mix --
     def _ssm_inputs(self, p: SSM, x: torch.Tensor):
@@ -135,6 +142,27 @@ class HymbaLM(TransformerLM):
         return x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
 
     # ------------------------------------------------------------- decode --
+    def cache_len(self, cell: ShapeCell) -> int:
+        return min(cell.seq_len, self.cfg.sliding_window)
+
+    def cache_specs(self, B: int, W: int) -> HymbaCache:
+        cfg = self.cfg
+        L, d = cfg.n_layers, cfg.d_model
+        H, G, hd, N = cfg.n_heads, cfg.n_kv_heads, cfg.hdim, cfg.ssm_state
+        kv = (L, B, W, G, hd)
+        return HymbaCache(
+            k=cm.shape_struct(kv, cfg.tdtype),
+            v=cm.shape_struct(kv, cfg.tdtype),
+            kpos=cm.shape_struct((W,), torch.int32),
+            ssm=cm.shape_struct((L, B, H, N, hd), torch.float32),
+            shift=cm.shape_struct((L, B, d), cfg.tdtype))
+
+    def cache_axes(self) -> HymbaCache:
+        kv = ("layers", "batch", "cache_seq", "kv_heads", None)
+        return HymbaCache(k=kv, v=kv, kpos=(None,),
+                          ssm=("layers", "batch", "heads", None, None),
+                          shift=("layers", "batch", "embed"))
+
     def init_cache(self, B: int, W: int) -> HymbaCache:
         """An empty ring of ``W`` slots (kpos -1) and zero SSM and shift
         states, as JAX ``HymbaLM.init_cache``."""

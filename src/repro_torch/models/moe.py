@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -23,8 +24,10 @@ import torch.nn.functional as F
 from repro_torch import flags
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.autograd import PlainSpanFn
-from repro_torch.models.transformer import (MLP, Attention, Norm,
-                                            TransformerLM, _Params, mlp)
+from repro_torch.models.common import ParamSpec, tree_leaves
+from repro_torch.models.transformer import (META, MLP, Attention, Norm,
+                                            TransformerLM, _Params, mlp,
+                                            stack_specs)
 
 
 class Experts(_Params):
@@ -34,9 +37,19 @@ class Experts(_Params):
         super().__init__()
         E, d, f, dt = cfg.n_experts, cfg.d_model, cfg.d_ff, cfg.tdtype
         fin = 2 * f if cfg.act == "swiglu" else f
-        self.add("router", (d, E), torch.float32, "scaled", device)
-        self.add("wi", (E, d, fin), dt, "scaled", device)
-        self.add("wo", (E, f, d), dt, "scaled", device)
+        self.add("router", (d, E), torch.float32, "scaled", device,
+                 axes=("embed", "experts"))
+        # 'expert_in' (not 'embed'): expert weights are EP-sharded over
+        # 'model' and stay whole per rank for the expert-parallel dispatch;
+        # ZeRO-1 shards their optimizer state over 'data' instead
+        self.add("wi", (E, d, fin), dt, "scaled", device,
+                 axes=("experts", "expert_in", "expert_mlp"))
+        self.add("wo", (E, f, d), dt, "scaled", device,
+                 axes=("experts", "expert_mlp", "expert_in"))
+
+
+def moe_specs(cfg: ArchConfig, L: int) -> Dict[str, ParamSpec]:
+    return stack_specs(Experts(cfg, META), L)
 
 
 def _dense_cfg(cfg: ArchConfig) -> ArchConfig:
@@ -167,8 +180,9 @@ def moe_ffn_ep(cfg: ArchConfig, p: Experts, x: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The expert-parallel MoE FFN of JAX ``moe_ep.moe_ffn_ep``. On one
     device (no mesh), or with ``REPRO_MOE_DENSE=1``, it is the dense
-    sort-based ``moe_ffn``, as JAX falls back; the all_to_all body comes
-    with the port's multi-device slice."""
+    sort-based ``moe_ffn``, as JAX falls back. The expert-parallel body
+    (the all_to_all dispatch over a mesh) is not ported yet; it will use
+    ``sharding.collectives``, which is."""
     if mesh is None or flags.moe_dense():
         return moe_ffn(cfg, p, x)
     raise NotImplementedError(
@@ -182,6 +196,22 @@ class MoETransformerLM(TransformerLM):
 
     def make_block(self, device: torch.device) -> nn.Module:
         return MoEBlock(self.cfg, device)
+
+    def moe_weight_axes_note(self) -> str:
+        return ("expert weights: ('layers','experts','expert_in',"
+                "'expert_mlp') — EP over 'model', replicated over "
+                "(pod,data); ZeRO-1 shards m/v over 'data'.")
+
+    def n_active_params(self) -> int:
+        """6·N_active·D roofline accounting: a stacked expert leaf counts
+        at k/E of its size."""
+        total = 0
+        for s in tree_leaves(self.param_specs()):
+            n = math.prod(s.shape)
+            if "experts" in s.axes and len(s.shape) >= 3:
+                n = n * self.cfg.moe_topk // self.cfg.n_experts
+            total += n
+        return total
 
     def ffn(self, p: MoEBlock, h: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike
 from repro_torch.models import common as cm
 from repro_torch.models.recurrence import gla_step, make_gla
@@ -36,26 +36,30 @@ class TimeMix(_Params):
         HK = cfg.n_heads * cfg.hdim
         hk = (cfg.n_heads, cfg.hdim)
         # static token-shift mixing coefficients per projection (r k v w g)
-        self.add("mu", (5, d), f32, "zeros", device)
+        self.add("mu", (5, d), f32, "zeros", device, axes=(None, "embed"))
         for name in ("wr", "wk", "wv", "wg"):
-            self.add(name, (d, HK), dt, "scaled", device)
-        self.add("wo", (HK, d), dt, "scaled", device)
+            self.add(name, (d, HK), dt, "scaled", device,
+                     axes=("embed", "qkv"))
+        self.add("wo", (HK, d), dt, "scaled", device, axes=("qkv", "embed"))
         # dynamic decay: w = -exp(w0 + (x @ A) @ B)  (low-rank, Finch)
-        self.add("w0", hk, f32, "zeros", device)
-        self.add("wA", (d, LORA_W), dt, "scaled", device)
-        self.add("wB", (LORA_W, HK), dt, "scaled", device)
-        self.add("u", hk, f32, "zeros", device)
-        self.add("ln_x", (HK,), f32, "ones", device)
+        self.add("w0", hk, f32, "zeros", device, axes=("heads", None))
+        self.add("wA", (d, LORA_W), dt, "scaled", device,
+                 axes=("embed", None))
+        self.add("wB", (LORA_W, HK), dt, "scaled", device,
+                 axes=(None, "qkv"))
+        self.add("u", hk, f32, "zeros", device, axes=("heads", None))
+        self.add("ln_x", (HK,), f32, "ones", device, axes=("qkv",))
 
 
 class ChannelMix(_Params):
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
-        self.add("mu", (2, d), torch.float32, "zeros", device)
-        self.add("wk", (d, f), dt, "scaled", device)
-        self.add("wv", (f, d), dt, "scaled", device)
-        self.add("wr", (d, d), dt, "scaled", device)
+        self.add("mu", (2, d), torch.float32, "zeros", device,
+                 axes=(None, "embed"))
+        self.add("wk", (d, f), dt, "scaled", device, axes=("embed", "mlp"))
+        self.add("wv", (f, d), dt, "scaled", device, axes=("mlp", "embed"))
+        self.add("wr", (d, d), dt, "scaled", device, axes=("embed", "embed"))
 
 
 class RwkvBlock(nn.Module):
@@ -147,6 +151,23 @@ class Rwkv6LM(TransformerLM):
         return x + self._channel_mix(p.ffn, h, self._shift(h))
 
     # ------------------------------------------------------------- decode --
+    def cache_len(self, cell: ShapeCell) -> int:
+        return 1  # O(1) state; S_max is irrelevant
+
+    def cache_specs(self, B: int, S_max: int) -> RwkvCache:
+        cfg = self.cfg
+        L, d = cfg.n_layers, cfg.d_model
+        H, K = cfg.n_heads, cfg.hdim
+        return RwkvCache(
+            state=cm.shape_struct((L, B, H, K, K), torch.float32),
+            shift_att=cm.shape_struct((L, B, d), cfg.tdtype),
+            shift_ffn=cm.shape_struct((L, B, d), cfg.tdtype))
+
+    def cache_axes(self) -> RwkvCache:
+        return RwkvCache(state=("layers", "batch", "heads", None, None),
+                         shift_att=("layers", "batch", "embed"),
+                         shift_ffn=("layers", "batch", "embed"))
+
     def init_cache(self, B: int, S_max: int = 1) -> RwkvCache:
         """A zero state (S_max is irrelevant: the state is O(1))."""
         cfg = self.cfg

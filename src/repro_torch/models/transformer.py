@@ -9,7 +9,10 @@ of ``rwkv6.Rwkv6LM`` and ``hymba.HymbaLM``, which override ``make_block``,
 Counterpart of ``repro/models/transformer.py``. Layers are an
 ``nn.ModuleList`` instead of the stacked (L, ...) scan carrier; weight
 matrices keep the JAX layout (in, out), so ``x @ w`` is the JAX einsum and
-the converter only splits and renames. Single device: no sharding hints.
+the converter only splits and renames. Each parameter is declared with its
+init style and logical axes (``_Params.add``); ``param_specs`` gives JAX's
+stacked spec tree and ``named_param_specs`` one spec a ``state_dict`` name.
+The models call no sharding ``hint`` yet: that comes with the sharded step.
 
 ``attn_impl`` picks the attention at every call site (forward, the
 training path, prefill, decode): ``"flash"`` (default) is the hand-written
@@ -28,7 +31,6 @@ the kernels carry them through ``kernels.autograd``. ``forward``,
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -36,7 +38,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
+from repro_torch.convert import restack
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common as cm
 
@@ -46,25 +49,40 @@ ATTN_IMPLS = ("flash", "ref", "chunked")
 # ----------------------------------------------------------------- params --
 class _Params(nn.Module):
     """A flat set of named parameters, each tagged with its init style
-    ('normal', 'zeros', 'ones', 'embed', 'scaled'), as ParamSpec does."""
+    ('normal', 'zeros', 'ones', 'embed', 'scaled') and its logical axes,
+    as ParamSpec does."""
 
     def __init__(self):
         super().__init__()
         self.inits: Dict[str, str] = {}
+        self.axes: Dict[str, Tuple[Optional[str], ...]] = {}
 
     def add(self, name: str, shape: Tuple[int, ...], dtype: torch.dtype,
-            init: str, device: torch.device) -> None:
+            init: str, device: torch.device, *,
+            axes: Tuple[Optional[str], ...]) -> None:
+        if len(axes) != len(shape):
+            raise ValueError(f"{name}: shape {shape}, axes {axes}")
         self.register_parameter(name, nn.Parameter(
             torch.empty(shape, dtype=dtype, device=device)))
         self.inits[name] = init
+        self.axes[name] = tuple(axes)
+
+    def specs(self) -> Dict[str, cm.ParamSpec]:
+        """This module's own parameters (not its children's) as specs."""
+        return {name: cm.ParamSpec(tuple(getattr(self, name).shape),
+                                   getattr(self, name).dtype, init,
+                                   self.axes[name])
+                for name, init in self.inits.items()}
 
 
 class Norm(_Params):
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
-        self.add("scale", (cfg.d_model,), torch.float32, "ones", device)
+        self.add("scale", (cfg.d_model,), torch.float32, "ones", device,
+                 axes=("embed",))
         if cfg.norm == "layernorm":
-            self.add("bias", (cfg.d_model,), torch.float32, "zeros", device)
+            self.add("bias", (cfg.d_model,), torch.float32, "zeros", device,
+                     axes=("embed",))
 
 
 class Attention(_Params):
@@ -77,17 +95,20 @@ class Attention(_Params):
         super().__init__()
         d, hd, H, G, dt = (cfg.d_model, cfg.hdim, cfg.n_heads,
                            cfg.n_kv_heads, cfg.tdtype)
-        self.add("wq", (d, H * hd), dt, "scaled", device)
-        self.add("wk", (d, G * hd), dt, "scaled", device)
-        self.add("wv", (d, G * hd), dt, "scaled", device)
-        self.add("wo", (H * hd, d), dt, "scaled", device)
+        into, out_of = ("embed", "qkv"), ("qkv", "embed")
+        self.add("wq", (d, H * hd), dt, "scaled", device, axes=into)
+        self.add("wk", (d, G * hd), dt, "scaled", device, axes=into)
+        self.add("wv", (d, G * hd), dt, "scaled", device, axes=into)
+        self.add("wo", (H * hd, d), dt, "scaled", device, axes=out_of)
         if cfg.qkv_bias and not cross:
-            self.add("bq", (H * hd,), dt, "zeros", device)
-            self.add("bk", (G * hd,), dt, "zeros", device)
-            self.add("bv", (G * hd,), dt, "zeros", device)
+            self.add("bq", (H * hd,), dt, "zeros", device, axes=("qkv",))
+            self.add("bk", (G * hd,), dt, "zeros", device, axes=("qkv",))
+            self.add("bv", (G * hd,), dt, "zeros", device, axes=("qkv",))
         if cfg.qk_norm and not cross:
-            self.add("q_norm", (hd,), torch.float32, "ones", device)
-            self.add("k_norm", (hd,), torch.float32, "ones", device)
+            self.add("q_norm", (hd,), torch.float32, "ones", device,
+                     axes=(None,))
+            self.add("k_norm", (hd,), torch.float32, "ones", device,
+                     axes=(None,))
 
 
 class MLP(_Params):
@@ -95,8 +116,9 @@ class MLP(_Params):
         super().__init__()
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
         width = 2 * f if cfg.act == "swiglu" else f
-        self.add("wi", (d, width), dt, "scaled", device)
-        self.add("wo", (f, d), dt, "scaled", device)
+        self.add("wi", (d, width), dt, "scaled", device,
+                 axes=("embed", "mlp"))
+        self.add("wo", (f, d), dt, "scaled", device, axes=("mlp", "embed"))
 
 
 class Block(nn.Module):
@@ -108,38 +130,38 @@ class Block(nn.Module):
         self.mlp = MLP(cfg, device)
 
 
-# a leaf above this many elements draws its f32 noise one slice along dim
-# 0 at a time: arctic-480b's expert leaf wi (128, 7168, 9728) would need a
-# 35.7 GB temporary beside 55.6 GB of weights. Every leaf of the dense and
-# recurrent families is below it, so their draws are unchanged
-NOISE_SLICE_ELEMS = 1 << 30
+# ------------------------------------------------------------------ specs --
+META = torch.device("meta")
 
 
-def _init_param(p: torch.Tensor, init: str,
-                generator: torch.Generator) -> None:
-    """The distributions of ``repro.models.common.init_param``, on p's
-    device (f32 normal, scaled, then cast)."""
-    if init == "zeros":
-        p.zero_()
-        return
-    if init == "ones":
-        p.fill_(1.0)
-        return
-    if init == "embed":       # 1/sqrt(d) keeps tied-embedding logits O(1)
-        std = 1.0 / math.sqrt(p.shape[-1])
-    elif init == "scaled":    # fan-in scaled
-        std = 1.0 / math.sqrt(p.shape[-2] if p.dim() >= 2 else p.shape[-1])
-    else:                     # 'normal'
-        std = 0.02
-    if p.numel() <= NOISE_SLICE_ELEMS:
-        noise = torch.randn(p.shape, generator=generator, device=p.device,
-                            dtype=torch.float32)
-        p.copy_(noise.mul_(std))
-        return
-    for part in p:
-        part.copy_(torch.randn(part.shape, generator=generator,
-                               device=p.device,
-                               dtype=torch.float32).mul_(std))
+def stack_specs(mod: _Params, L: int) -> Dict[str, cm.ParamSpec]:
+    """``mod``'s own specs, L of each stacked on a leading ``layers``
+    dim, as JAX declares a layer's leaves."""
+    return {name: s.stacked(L) for name, s in mod.specs().items()}
+
+
+def _norm_spec(cfg: ArchConfig, L: int) -> Dict[str, cm.ParamSpec]:
+    return stack_specs(Norm(cfg, META), L)
+
+
+def _final_norm_spec(cfg: ArchConfig) -> Dict[str, cm.ParamSpec]:
+    return Norm(cfg, META).specs()
+
+
+def attention_specs(cfg: ArchConfig, L: int, *, cross: bool = False
+                    ) -> Dict[str, cm.ParamSpec]:
+    return stack_specs(Attention(cfg, META, cross=cross), L)
+
+
+def mlp_specs(cfg: ArchConfig, L: int) -> Dict[str, cm.ParamSpec]:
+    return stack_specs(MLP(cfg, META), L)
+
+
+def _stack(specs: List[cm.ParamSpec]) -> cm.ParamSpec:
+    """One leaf's per-layer specs -> its stacked spec."""
+    if any(s != specs[0] for s in specs):
+        raise ValueError(f"layers declare one leaf differently: {specs}")
+    return specs[0].stacked(len(specs))
 
 
 # ---------------------------------------------------------------- compute --
@@ -314,6 +336,10 @@ class TransformerLM(nn.Module):
             self.lm_head = nn.Parameter(
                 torch.empty((cfg.d_model, V), dtype=cfg.tdtype, device=dev))
 
+    #: the model's bare parameters: (init style, logical axes)
+    TOP_PARAMS = {"embed": ("embed", ("vocab", "embed")),
+                  "lm_head": ("scaled", ("embed", "vocab"))}
+
     def make_block(self, device: torch.device) -> nn.Module:
         """One layer's parameter modules; subclasses return their own.
         ``init_params`` fills every ``_Params`` module found under it."""
@@ -325,13 +351,84 @@ class TransformerLM(nn.Module):
         drawn from ``generator`` on the parameters' device. The numbers are
         not JAX's; parity tests carry JAX's params over with
         ``repro_torch.convert.params_from_jax`` instead."""
-        _init_param(self.embed, "embed", generator)
-        if self.lm_head is not None:
-            _init_param(self.lm_head, "scaled", generator)
+        for name, (init, _) in self.TOP_PARAMS.items():
+            if getattr(self, name) is not None:
+                cm.init_param(getattr(self, name), init, generator)
         for mod in self.modules():
             if isinstance(mod, _Params):
                 for name, init in mod.inits.items():
-                    _init_param(getattr(mod, name), init, generator)
+                    cm.init_param(getattr(mod, name), init, generator)
+
+    # -------------------------------------------------------------- specs --
+    # Build the model on device="meta" to read its specs without
+    # allocating it: build_model(cfg, device="meta").param_specs()
+    def named_param_specs(self) -> Dict[str, cm.ParamSpec]:
+        """One spec per ``state_dict`` name, a layer's leaves without the
+        ``layers`` dim: the view that places the port's per-layer
+        parameters."""
+        out = {}
+        for name, p in self.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            mod = self.get_submodule(owner)
+            init, axes = ((mod.inits[leaf], mod.axes[leaf])
+                          if isinstance(mod, _Params)
+                          else self.TOP_PARAMS[leaf])
+            out[name] = cm.ParamSpec(tuple(p.shape), p.dtype, init, axes)
+        return out
+
+    def param_specs(self) -> cm.ParamTree:
+        """JAX's spec tree, its names and layout: the layer leaves (and
+        encdec's encoder leaves) stacked (L, ...) with a leading
+        ``layers`` axis, by the mapping of ``convert.params_to_numpy``."""
+        return restack(self.cfg, self.named_param_specs(), _stack)
+
+    def layer_specs(self) -> cm.ParamTree:
+        return self.param_specs()["layers"]
+
+    def n_params(self) -> int:
+        return cm.count_params(self.param_specs())
+
+    def n_active_params(self) -> int:
+        return self.n_params()
+
+    def cache_len(self, cell: ShapeCell) -> int:
+        w = self.cfg.sliding_window
+        return min(cell.seq_len, w) if w else cell.seq_len
+
+    def cache_specs(self, B: int, S_max: int) -> "DecodeCache":
+        cfg = self.cfg
+        shp = (cfg.n_layers, B, S_max, cfg.n_kv_heads, cfg.hdim)
+        return DecodeCache(k=cm.shape_struct(shp, cfg.tdtype),
+                           v=cm.shape_struct(shp, cfg.tdtype),
+                           kpos=cm.shape_struct((S_max,), torch.int32))
+
+    def cache_axes(self) -> "DecodeCache":
+        ax = ("layers", "batch", "cache_seq", "kv_heads", None)
+        return DecodeCache(k=ax, v=ax, kpos=(None,))
+
+    def input_specs(self, cell: ShapeCell) -> Dict[str, object]:
+        B, S = cell.global_batch, cell.seq_len
+        if cell.kind in ("train", "prefill"):
+            return {"tokens": cm.shape_struct((B, S), torch.int32)}
+        return {"tokens": cm.shape_struct((B, 1), torch.int32),
+                "pos": cm.shape_struct((), torch.int32),
+                "cache": self.cache_specs(B, self.cache_len(cell))}
+
+    def input_axes(self, cell: ShapeCell) -> Dict[str, object]:
+        if cell.kind in ("train", "prefill"):
+            return {"tokens": ("batch", "seq")}
+        return {"tokens": ("batch", None), "pos": (),
+                "cache": self.cache_axes()}
+
+    def model_flops(self, cell: ShapeCell) -> float:
+        """MODEL_FLOPS = 6·N·D (train), 2·N·D (prefill), 2·N a decoded
+        token, N the active params."""
+        N = self.n_active_params()
+        if cell.kind == "train":
+            return 6.0 * N * cell.global_batch * cell.seq_len
+        if cell.kind == "prefill":
+            return 2.0 * N * cell.global_batch * cell.seq_len
+        return 2.0 * N * cell.global_batch
 
     # ------------------------------------------------------------ forward --
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:

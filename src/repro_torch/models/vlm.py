@@ -13,7 +13,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import (DecodeCache, TransformerLM,
@@ -25,11 +25,12 @@ class Projector(_Params):
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
-        self.add("ln", (cfg.vis_dim,), torch.float32, "ones", device)
+        self.add("ln", (cfg.vis_dim,), torch.float32, "ones", device,
+                 axes=("vis",))
         self.add("w1", (cfg.vis_dim, cfg.d_model), cfg.tdtype, "scaled",
-                 device)
+                 device, axes=("vis", "embed"))
         self.add("w2", (cfg.d_model, cfg.d_model), cfg.tdtype, "scaled",
-                 device)
+                 device, axes=("embed", "embed"))
 
 
 class VlmLM(TransformerLM):
@@ -40,6 +41,29 @@ class VlmLM(TransformerLM):
                  attn_impl: str = "flash"):
         super().__init__(cfg, device=device, attn_impl=attn_impl)
         self.projector = Projector(cfg, self.embed.device)
+
+    def text_len(self, cell: ShapeCell) -> int:
+        """Text tokens of a cell: its seq_len less the patch prefix."""
+        return cell.seq_len - self.cfg.vis_tokens
+
+    def input_specs(self, cell: ShapeCell) -> Dict[str, object]:
+        cfg = self.cfg
+        B = cell.global_batch
+        if cell.kind in ("train", "prefill"):
+            return {"tokens": cm.shape_struct((B, self.text_len(cell)),
+                                              torch.int32),
+                    "patches": cm.shape_struct(
+                        (B, cfg.vis_tokens, cfg.vis_dim), cfg.tdtype)}
+        return {"tokens": cm.shape_struct((B, 1), torch.int32),
+                "pos": cm.shape_struct((), torch.int32),
+                "cache": self.cache_specs(B, cell.seq_len)}
+
+    def input_axes(self, cell: ShapeCell) -> Dict[str, object]:
+        if cell.kind in ("train", "prefill"):
+            return {"tokens": ("batch", "seq"),
+                    "patches": ("batch", "seq", "vis")}
+        return {"tokens": ("batch", None), "pos": (),
+                "cache": self.cache_axes()}
 
     def project_patches(self, patches: torch.Tensor) -> torch.Tensor:
         p = self.projector

@@ -1,5 +1,7 @@
-"""AdamW, as ``repro/train/optimizer.py`` computes it (the single-device
-half; ZeRO-1 state sharding waits for the multi-device slice).
+"""AdamW, as ``repro/train/optimizer.py`` computes it, and the logical
+axes of its ZeRO-1 state (``zero1_leaf_axes``, ``opt_state_axes``, on
+JAX's stacked spec tree; the sharded step that places the state by them
+is not ported yet).
 
 The port's params are the model's named parameters, one leaf per layer,
 where JAX stacks each layer leaf into (L, ...). The state mirrors them:
@@ -27,6 +29,10 @@ import math
 from typing import Dict, Mapping, Tuple
 
 import torch
+
+from repro_torch.models.common import ParamSpec, ParamTree, tree_map
+from repro_torch.sharding.partition import (Rules, logical_to_spec,
+                                            mesh_axis_size)
 
 #: the largest piece of a leaf the update and the norm take at once, in
 #: elements (256 MB of f32)
@@ -136,3 +142,48 @@ def adamw_update(cfg: OptConfig, grads: Mapping[str, torch.Tensor],
                 v.copy_(v32)
     state["step"] = step
     return state, {"grad_norm": gnorm, "lr": lr}
+
+
+# --------------------------------------------------------------- sharding --
+def zero1_leaf_axes(spec: ParamSpec, mesh, rules: Rules) -> Tuple:
+    """Axes for one param's m/v: param axes + 'fsdp' on the largest free
+    dim (ZeRO-1). Falls back to the param axes when nothing shards."""
+    fs = mesh_axis_size(mesh, rules.get("fsdp"))
+    if fs <= 1:
+        return spec.axes
+    base = logical_to_spec(mesh, rules, spec.axes, spec.shape)
+    # mesh axes already consumed by the param's own sharding
+    used = set()
+    for entry in base:
+        if entry is None:
+            continue
+        for a in (entry,) if isinstance(entry, str) else entry:
+            used.add(a)
+    fsdp_axis = rules.get("fsdp")
+    flat_fsdp = ((fsdp_axis,) if isinstance(fsdp_axis, str)
+                 else tuple(fsdp_axis or ()))
+    if any(a in used for a in flat_fsdp):
+        return spec.axes
+    # largest dim whose logical axis maps to nothing and divides fs
+    cand = None
+    base_full = list(base) + [None] * (len(spec.shape) - len(base))
+    for i, dim in enumerate(spec.shape):
+        if base_full[i] is None and dim % fs == 0:
+            if cand is None or dim > spec.shape[cand]:
+                cand = i
+    if cand is None:
+        return spec.axes
+    axes = list(spec.axes)
+    axes[cand] = "fsdp"
+    return tuple(axes)
+
+
+def opt_state_axes(param_specs: ParamTree, mesh, rules: Rules, *,
+                   zero1: bool = True) -> Dict[str, object]:
+    """Logical-axes tree for the optimizer state, from JAX's stacked spec
+    tree (``model.param_specs()``)."""
+    def leaf(spec: ParamSpec):
+        return zero1_leaf_axes(spec, mesh, rules) if zero1 else spec.axes
+
+    mv = tree_map(leaf, param_specs)
+    return {"m": mv, "v": tree_map(lambda x: x, mv), "step": ()}

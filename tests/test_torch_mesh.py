@@ -1,0 +1,310 @@
+"""The port's multi-rank layer against the JAX package: the hierarchical
+collectives and the MapReduce mesh shuffle (JoSS policies A and B).
+
+One module-scoped run starts 8 gloo ranks (tests/torch_mesh_ranks.py)
+beside one JAX process with 8 fake CPU devices (``jax.set_mesh``, as the
+JAX tests' ``run_sub``), all at once; each test reads its part of their
+outputs. ``_partition_pack`` needs no ranks: it is held to JAX's in this
+process. JAX's recipes are those of tests/test_multidevice.py (:28, :50,
+:78)."""
+import collections
+import os
+import subprocess
+import sys
+import textwrap
+import time
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.mapreduce import JOBS as JJOBS  # noqa: E402
+from repro.mapreduce import engine as jengine  # noqa: E402
+from repro_torch import mapreduce as mr  # noqa: E402
+from repro_torch.mapreduce import engine  # noqa: E402
+from repro_torch.mapreduce.jobs import EMPTY, KVBatch  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RANKS = os.path.join(REPO, "tests", "torch_mesh_ranks.py")
+sys.path.insert(0, os.path.join(REPO, "tests"))
+import torch_mesh_ranks as ranks_mod  # noqa: E402
+
+WORLD = 8
+#: seconds for the whole group and the JAX process; past it every process
+#: is killed and the tests fail
+DEADLINE_S = 300
+#: JAX's tolerance for the float collectives (test_multidevice.py:45)
+RTOL = 1e-6
+#: the jobs JAX's own mesh_mapreduce runs: for II (whose map reads the
+#: shard group's index as its doc id) it raises under JAX 0.9 ("pvary is
+#: a invariant->variant collective"), so the port's II is held to WC's
+#: reducers and to the Counter instead
+JAX_JOBS = ("WC",)
+
+JAX_PROG = textwrap.dedent("""
+    import sys
+    import numpy as np
+    import jax, jax.numpy as jnp
+    from functools import partial
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
+    from repro.mapreduce import JOBS, mesh_mapreduce
+    from repro.sharding.collectives import (flat_psum, hierarchical_psum,
+                                            two_hop_all_to_all)
+    sys.path.insert(0, sys.argv[2])
+    from torch_mesh_ranks import MR_RUNS, mr_shards
+    out = {}
+    mesh = jax.make_mesh((2, 2, 2), ("pod", "data", "model"))
+    x = jnp.arange(8 * 16, dtype=jnp.float32).reshape(8, 16)
+    for name, fn in (("hier", hierarchical_psum), ("flat", flat_psum)):
+        out["psum_" + name] = np.asarray(shard_map(
+            partial(fn, data_axis="data", pod_axis="pod"), mesh=mesh,
+            in_specs=P("model"), out_specs=P("model"), check_rep=False)(x))
+    mesh = jax.make_mesh((2, 4), ("pod", "model"))
+    x = jnp.arange(8 * 8 * 3, dtype=jnp.float32).reshape(8, 8, 3)
+    spec = P(("pod", "model"))
+    out["a2a_flat"] = np.asarray(shard_map(
+        lambda xl: jax.lax.all_to_all(xl[0], ("pod", "model"), split_axis=0,
+                                      concat_axis=0, tiled=True)[None],
+        mesh=mesh, in_specs=spec, out_specs=spec)(x))
+    out["a2a_hier"] = np.asarray(shard_map(
+        lambda xl: two_hop_all_to_all(xl[0], pod_axis="pod",
+                                      inner_axis="model")[None],
+        mesh=mesh, in_specs=spec, out_specs=spec)(x))
+    toks, lens = (jnp.asarray(a) for a in mr_shards())
+    for run, (shape, names, shuffle, shard) in MR_RUNS.items():
+        mesh = jax.make_mesh(shape, names)
+        for job in ("WC",):   # II raises under JAX 0.9: see JAX_JOBS
+            with jax.set_mesh(mesh):
+                res = mesh_mapreduce(JOBS[job], toks, lens, mesh,
+                                     shuffle_axes=shuffle, shard_axes=shard)
+            for field, val in zip(("unique_keys", "counts", "n_unique",
+                                   "dropped"), res):
+                out[f"mr_{run}_{job}_{field}"] = np.asarray(val)
+    np.savez(sys.argv[1], **out)
+""")
+
+
+def _tail(path, n=3000):
+    try:
+        with open(path) as f:
+            return f.read()[-n:]
+    except OSError:
+        return ""
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Start the 8 ranks and the JAX process together; wait for all of
+    them up to DEADLINE_S, then kill whatever still runs. Returns
+    ([rank outputs], JAX outputs)."""
+    d = tmp_path_factory.mktemp("mesh")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    env.pop("XLA_FLAGS", None)
+    jax_env = dict(env, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+                   JAX_PLATFORMS="cpu")
+    procs = {}
+    try:
+        for name, argv, penv in (
+                [("jax", [sys.executable, "-c", JAX_PROG, str(d / "jax.npz"),
+                          os.path.join(REPO, "tests")], jax_env)]
+                + [(f"rank{r}", [sys.executable, RANKS, str(r), str(WORLD),
+                                 str(d / "rendezvous"), str(d)], env)
+                   for r in range(WORLD)]):
+            err = open(d / f"{name}.err", "w")
+            procs[name] = (subprocess.Popen(argv, env=penv, cwd=REPO,
+                                            stdout=err, stderr=err), err)
+        end = time.monotonic() + DEADLINE_S
+        for name, (p, _) in procs.items():
+            try:
+                p.wait(timeout=max(1.0, end - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+        failed = {name: p.returncode for name, (p, _) in procs.items()
+                  if p.returncode != 0}
+    finally:
+        for p, err in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            err.close()
+    assert not failed, "\n".join(
+        f"--- {name}: exit {rc} (None: killed at the {DEADLINE_S} s "
+        f"deadline)\n{_tail(d / f'{name}.err')}"
+        for name, rc in failed.items())
+    return ([dict(np.load(d / f"rank{r}.npz")) for r in range(WORLD)],
+            dict(np.load(d / "jax.npz")))
+
+
+def test_hierarchical_psum_equals_flat_and_jax(runs):
+    got, want = runs
+    # rank (pod, data, model) holds the rows of model coordinate m = r % 2
+    for name in ("psum_hier", "psum_flat"):
+        full = np.concatenate([got[m][name] for m in (0, 1)])
+        np.testing.assert_allclose(full, want[name], rtol=RTOL)
+        for r in range(WORLD):
+            np.testing.assert_array_equal(got[r][name], got[r % 2][name])
+    np.testing.assert_allclose(np.concatenate([got[m]["psum_hier"]
+                                               for m in (0, 1)]),
+                               np.concatenate([got[m]["psum_flat"]
+                                               for m in (0, 1)]), rtol=RTOL)
+
+
+def test_grad_allreduce_sums_over_the_batch_axes(runs):
+    """make_grad_allreduce sums each leaf over (pod, data), the ranks of
+    one model coordinate; hierarchical and flat agree."""
+    got, _ = runs
+    trees = [ranks_mod.grad_tree(r) for r in range(WORLD)]
+    for r in range(WORLD):
+        peers = [q for q in range(WORLD) if q % 2 == r % 2]
+        want_w = sum(trees[q]["w"] for q in peers).numpy()
+        want_bx = sum(trees[q]["b"]["x"] for q in peers).numpy()
+        for form in ("grad_hier", "grad_flat"):
+            np.testing.assert_allclose(got[r][f"{form}_w"], want_w,
+                                       rtol=RTOL, atol=1e-6)
+            np.testing.assert_allclose(got[r][f"{form}_bx"], want_bx,
+                                       rtol=RTOL, atol=1e-6)
+
+
+def test_two_hop_all_to_all_equals_flat_and_jax(runs):
+    got, want = runs
+    hier = np.stack([got[r]["a2a_hier"] for r in range(WORLD)])
+    flat = np.stack([got[r]["a2a_flat"] for r in range(WORLD)])
+    np.testing.assert_array_equal(hier, flat)
+    np.testing.assert_array_equal(hier, want["a2a_hier"])
+    np.testing.assert_array_equal(flat, want["a2a_flat"])
+
+
+@pytest.mark.parametrize("job", ranks_mod.MR_JOBS)
+@pytest.mark.parametrize("run", sorted(ranks_mod.MR_RUNS))
+def test_mesh_mapreduce_equals_jax_per_reducer(runs, run, job):
+    """Every reducer's unique keys, counts, n_unique and dropped equal
+    JAX's bit for bit (II: its keys, n_unique and dropped equal JAX's WC
+    reducers', whose keys are the same tokens); every rank gathers the
+    same rows."""
+    got, want = runs
+    pre = f"mr_{run}_{job}_"
+    ref = f"mr_{run}_{job if job in JAX_JOBS else 'WC'}_"
+    keys = got[0][pre + "unique_keys"]
+    assert keys.dtype == np.int64
+    np.testing.assert_array_equal(keys, want[ref + "unique_keys"]
+                                  .astype(np.int64))
+    fields = ("counts", "n_unique", "dropped") if job in JAX_JOBS else (
+        "n_unique", "dropped")
+    for field in fields:
+        np.testing.assert_array_equal(got[0][pre + field], want[ref + field])
+    assert int(got[0][pre + "dropped"].sum()) == 0
+    for r in range(1, WORLD):
+        for field in ("unique_keys", "counts", "n_unique", "dropped",
+                      "records", "cross_pod"):
+            np.testing.assert_array_equal(got[r][pre + field],
+                                          got[0][pre + field])
+        np.testing.assert_array_equal(got[r][pre + "own_cross_pod"],
+                                      got[0][pre + "cross_pod"][r:r + 1])
+
+
+@pytest.mark.parametrize("job", ranks_mod.MR_JOBS)
+@pytest.mark.parametrize("run", sorted(ranks_mod.MR_RUNS))
+def test_mesh_mapreduce_merges_to_the_counter_and_local(runs, run, job):
+    """The reducers' rows, merged, equal the Counter of JAX's test and the
+    port's local_mapreduce of each shard, merged; II's values are the
+    shard group's index summed."""
+    got, _ = runs
+    pre = f"mr_{run}_{job}_"
+    shape, names, _, shard = ranks_mod.MR_RUNS[run]
+    sizes = dict(zip(names, shape))
+    D = int(np.prod([sizes[a] for a in ranks_mod.MR_RUNS[run][2]]))
+    keys, counts = got[0][pre + "unique_keys"], got[0][pre + "counts"]
+    merged, seen = collections.Counter(), set()
+    for g, (krow, crow) in enumerate(zip(keys, counts)):
+        for k, c in zip(krow, crow):
+            if k != EMPTY:
+                # a key has one reducer in each shuffle group (a pod
+                # under policy A)
+                assert (g // D, k) not in seen
+                seen.add((g // D, k))
+                merged[int(k)] += int(c)
+    toks, lens = ranks_mod.mr_shards()
+    local = len(toks) // int(np.prod([dict(zip(names, shape))[a]
+                                      for a in shard]))
+    expect, via_local = {}, collections.Counter()
+    for i, (row, lrow) in enumerate(zip(toks, lens)):
+        for t in row[row >= 0]:
+            expect[int(t)] = expect.get(int(t), 0) + (
+                1 if job == "WC" else i // local)
+        k, v, n = mr.local_mapreduce(mr.JOBS["WC"], row, lrow, device="cpu")
+        via_local.update(dict(zip(k[:int(n)].tolist(), v[:int(n)].tolist())))
+    assert dict(merged) == expect
+    if job == "WC":
+        assert merged == via_local
+    assert int(got[0][pre + "records"].sum()) == int((toks >= 0).sum())
+
+
+def test_policy_a_keeps_every_record_in_its_pod_and_b_does_not(runs):
+    got, _ = runs
+    for job in ranks_mod.MR_JOBS:
+        a = got[0][f"mr_policy_a_{job}_cross_pod"]
+        b = got[0][f"mr_policy_b_{job}_cross_pod"]
+        assert int(a.sum()) == 0
+        assert (b > 0).all(), b
+        # no pod on the (8,) mesh
+        assert int(got[0][f"mr_data8_{job}_cross_pod"].sum()) == 0
+
+
+def test_hint_redistributes_a_dtensor_and_host_mesh(runs):
+    got, _ = runs
+    for r in range(WORLD):
+        assert bool(got[r]["hint_sharded"])
+        assert bool(got[r]["hint_full_equal"])
+        assert int(got[r]["hint_local_rows"]) == 16 // WORLD
+        assert tuple(got[r]["host_mesh_shape"]) == (1, WORLD)
+        assert tuple(got[r]["host_mesh_names"]) == ("data", "model")
+
+
+# ----------------------------------------------------- _partition_pack --
+def _kv_pair(job, kind, n, seed):
+    """JAX's run_map output of one shard, and the same records as the
+    port's KVBatch."""
+    tok, lng = mr.corpus(kind, n, seed=seed)
+    kv = jengine.run_map(JJOBS[job], jnp.asarray(tok), jnp.asarray(lng), 3)
+    port = KVBatch(torch.from_numpy(np.asarray(kv.keys).astype(np.int64)),
+                   torch.from_numpy(np.array(kv.values)),
+                   torch.from_numpy(np.array(kv.nbytes)), kv.cap)
+    return kv, port
+
+
+@pytest.mark.parametrize("kind", ("web", "non-web"))
+@pytest.mark.parametrize("job", sorted(mr.JOBS))
+def test_partition_pack_matches_jax(job, kind):
+    """Bit-equal buckets and dropped count at JAX's mesh capacity (slack
+    4, 8 destinations) and at a small slack that overflows."""
+    kv, port = _kv_pair(job, kind, 1024, 5)
+    n_valid = int((port.keys != EMPTY).sum())
+    assert n_valid > 8
+    for n_dest, cap_dest, overflow in ((8, 4 * -(-kv.cap // 8), False),
+                                       (4, n_valid // 8, True)):
+        K, V, DR = jengine._partition_pack(kv, n_dest, cap_dest)
+        k, v, dr = engine._partition_pack(port, n_dest, cap_dest)
+        assert k.shape == (n_dest, cap_dest) and k.dtype == torch.int64
+        assert v.dtype == torch.int32 and dr.dtype == torch.int32
+        np.testing.assert_array_equal(k.numpy(),
+                                      np.asarray(K).astype(np.int64))
+        np.testing.assert_array_equal(v.numpy(), np.asarray(V))
+        assert int(dr) == int(DR)
+        assert (int(dr) > 0) == overflow
+
+
+def test_partition_pack_of_the_ports_own_map():
+    """The port's run_map feeds the pack the records JAX's does."""
+    for job in sorted(mr.JOBS):
+        kv, port = _kv_pair(job, "web", 700, 9)
+        tok, lng = mr.corpus("web", 700, seed=9)
+        own = engine.run_map(mr.JOBS[job], torch.from_numpy(tok),
+                             torch.from_numpy(lng), 3)
+        a = engine._partition_pack(own, 8, 4 * -(-own.cap // 8))
+        b = engine._partition_pack(port, 8, 4 * -(-port.cap // 8))
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
