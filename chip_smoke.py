@@ -93,6 +93,23 @@ Phases, each failing the run with a non-zero exit:
                one-layer backward twice on one batch, every gradient's
                bits compared (the MoE dispatch's gather backward adds
                each token's k rows)
+  moe_ep     - the expert-parallel MoE body (models/moe_ep.py) of
+               dbrx-132b at full width (16 experts, top-4), bf16, B 4 x
+               1024, for 4 ranks in one process, the all_to_all done as
+               the tensor transpose it performs: equal to the dense
+               moe_ffn at a capacity factor with no drops; at the config's
+               1.25, in f32 on 4 x 256 tokens routed unevenly, the card
+               equal to the CPU, the same pairs dropped; time and peak
+               memory
+  train_sharded - the sharded train step (train/sharded.py) at world size
+               1 on NCCL, over a (1, 1) ('data', 'model') mesh: qwen3-4b
+               at full width, 4 layers, B 4 x 1024, n_micro 2, through the
+               flash kernel, three steps bit for bit against the unsharded
+               step from the same weights
+  dryrun     - python -m repro_torch.launch.dryrun --all --both-meshes in a
+               CPU process started before phase 3 on a core of its own
+               (this process keeps the others), read after phase 9: 80
+               rows, 16 SKIP, no FAIL
 Each phase prints JSON lines; the run ends with the nvidia-smi line, the
 kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
@@ -103,6 +120,7 @@ import hashlib
 import itertools
 import json
 import math
+import os
 import random
 import shutil
 import statistics
@@ -147,6 +165,9 @@ from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models.recurrence import gla_chunked  # noqa: E402
 from repro_torch.obs import TelemetryConfig  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
+from repro_torch.models.moe import Experts, moe_ffn  # noqa: E402
+from repro_torch.models.moe_ep import moe_ffn_ep_virtual  # noqa: E402
+from repro_torch.sharding import DEFAULT_RULES  # noqa: E402
 from repro_torch.sharding import collectives as col  # noqa: E402
 from repro_torch.sim import experiment, golden  # noqa: E402
 from repro_torch.sim import workloads as wl  # noqa: E402
@@ -160,6 +181,7 @@ from repro_torch.sweep import vmap_fill as vf  # noqa: E402
 from repro_torch.train import (OptConfig, TrainConfig, adamw_init,  # noqa: E402
                                init_train_state, make_train_step)
 from repro_torch.train.checkpoint import AsyncCheckpointer  # noqa: E402
+from repro_torch.train.sharded import ShardedTraining  # noqa: E402
 from repro_torch.train.checkpoint import restore as ckpt_restore  # noqa: E402
 
 DEV = "cuda"  # the phases run on the card
@@ -1137,10 +1159,12 @@ POOL_MATRIX = dict(hosts_per_pod=(8, 8), n_jobs=12)
 POOL_CLAIM_METRICS = ("wtt", "int_mb")
 POOL_SHUFFLE_SEED = 0xC0FFEE
 POOL_WORKERS = 4
-# the selftest runs: 2 workers; a hung cell's timeout also counts a
-# spawned worker's start-up (a few seconds), so 15 s
+# the selftest runs: 2 workers. A cell's timeout also counts the start-up
+# of the pool's spawned workers (each imports torch and this file afresh),
+# which took 8-15 s on the card's host and once over 15 s, timing out the
+# hung cell's retries as well; 60 s leaves that start-up four times over
 SELFTEST_WORKERS = 2
-SELFTEST_TIMEOUT_S = 15.0
+SELFTEST_TIMEOUT_S = 60.0
 SELFTEST_FAST = dict(retry_backoff_s=0.05, retry_backoff_cap_s=0.2)
 # bench_overhead's assign-rate point: 200 jobs of 8 blocks, best of 3
 ASSIGN_JOBS, ASSIGN_BLOCKS, ASSIGN_REPS = 200, 8, 3
@@ -1294,6 +1318,8 @@ def phase_sweep_pool():
     out["selftest_s"] = time.perf_counter() - t0
     emit(phase="sweep_pool", part="selftest", workers=SELFTEST_WORKERS,
          cell_timeout_s=SELFTEST_TIMEOUT_S, cells=rows, counts=counts,
+         wall_s={"crash_once": st_crash.wall_s, "hang_once": st_hang.wall_s,
+                 "crash_always": st_poison.wall_s},
          results={"crash_once": len(noisy), "hang_once": len(hung),
                   "crash_always": len(poisoned)},
          unaffected_aggregate_identical=agg_identical,
@@ -2610,6 +2636,298 @@ def phase_train():
     return launches, profiles
 
 
+# -------------------------------------------------------------- moe_ep --
+MOE_EP_ARCH = "dbrx-132b"
+MOE_EP_RANKS = 4
+MOE_EP_SHAPE = (4, 1024)
+#: no (token, choice) pair can drop: a rank's 1024 tokens, a local
+#: capacity of 1024 each expert (each token picks an expert once)
+MOE_EP_NODROP_CF = 4.0
+#: the config's capacity factor, in f32, on 4 x 256 tokens (64 a rank:
+#: local capacity 24), card against CPU; every token shares one offset of
+#: this scale, so the router favours some experts and pairs drop
+MOE_EP_F32_SHAPE = (4, 256)
+MOE_EP_SKEW = 1.5
+#: bf16 EP against bf16 dense (the same per-expert products, the expert
+#: rows in another order); f32 card against f32 CPU
+MOE_EP_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-3)}
+
+
+def moe_experts(cfg, dtype, seed):
+    """dbrx's router and experts at full width, from a seed, on the card."""
+    e = Experts(dataclasses.replace(cfg, dtype=str(dtype).split(".")[1]),
+                torch.device(DEV))
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    with torch.no_grad():
+        for name, init in e.inits.items():
+            cm.init_param(getattr(e, name), init, gen)
+    return e.requires_grad_(False)
+
+
+def phase_moe_ep():
+    cfg = get_config(MOE_EP_ARCH)
+    M = MOE_EP_RANKS
+    e = moe_experts(cfg, torch.bfloat16, 31)
+    x = torch.randn(*MOE_EP_SHAPE, cfg.d_model, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(32)
+                    ).to(torch.bfloat16)
+    nd = cfg.scaled(capacity_factor=MOE_EP_NODROP_CF)
+    secs = {"ep": [], "dense": []}
+
+    def run(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = (moe_ffn_ep_virtual(nd, e, x, M) if name == "ep"
+               else moe_ffn(nd, e, x))
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+        return got
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        out, aux, dropped = run("ep")   # the first call: cuBLAS warm-up
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for name in ("dense", "ep", "ep", "dense"):
+            got = run(name)
+        dense, dense_aux = got
+    atol, rtol = MOE_EP_TOL[torch.bfloat16]
+    err, ok = within(out, dense, atol, rtol)
+    emit(phase="moe_ep", check="nodrop", arch=MOE_EP_ARCH, ranks=M,
+         d_model=cfg.d_model, n_experts=cfg.n_experts, topk=cfg.moe_topk,
+         d_ff=cfg.d_ff, batch=MOE_EP_SHAPE[0], seq_len=MOE_EP_SHAPE[1],
+         dtype="bfloat16", capacity_factor=MOE_EP_NODROP_CF,
+         expert_gb=sum(t.numel() * t.element_size()
+                       for t in (e.wi, e.wo)) / 1e9,
+         dropped=dropped, max_abs_err=err, atol=atol, rtol=rtol,
+         within=ok, aux=float(aux), dense_aux=float(dense_aux),
+         seconds=secs["ep"], dense_seconds=secs["dense"], peak_mem_gb=peak,
+         reduced=[])
+    check(ok and dropped == 0, f"moe_ep: EP differs from the dense dispatch "
+                               f"by {err} (dropped {dropped})")
+    del e, x, out, dense
+    torch.cuda.empty_cache()
+    # the config's capacity factor, f32: the card against the CPU
+    e = moe_experts(cfg, torch.float32, 33)
+    gen = torch.Generator(device=DEV).manual_seed(34)
+    x = (torch.randn(*MOE_EP_F32_SHAPE, cfg.d_model, device=DEV,
+                     generator=gen)
+         + MOE_EP_SKEW * torch.randn(cfg.d_model, device=DEV, generator=gen))
+    with torch.no_grad():
+        out, aux, dropped = moe_ffn_ep_virtual(cfg, e, x, M)
+        e_cpu = Experts(cfg.scaled(dtype="float32"), torch.device("cpu"))
+        for name in e.inits:
+            getattr(e_cpu, name).data = getattr(e, name).cpu()
+        del e
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref, ref_aux, ref_dropped = moe_ffn_ep_virtual(cfg, e_cpu, x.cpu(),
+                                                       M)
+        cpu_s = time.perf_counter() - t0
+    atol, rtol = MOE_EP_TOL[torch.float32]
+    err, ok = within(out.cpu(), ref, atol, rtol)
+    pairs = MOE_EP_F32_SHAPE[0] * MOE_EP_F32_SHAPE[1] * cfg.moe_topk
+    emit(phase="moe_ep", check="card_vs_cpu", arch=MOE_EP_ARCH, ranks=M,
+         batch=MOE_EP_F32_SHAPE[0], seq_len=MOE_EP_F32_SHAPE[1],
+         dtype="float32", capacity_factor=cfg.capacity_factor,
+         skew=MOE_EP_SKEW, pairs=pairs, dropped=dropped,
+         cpu_dropped=ref_dropped,
+         max_abs_err=err, atol=atol, rtol=rtol, within=ok,
+         aux=float(aux), cpu_aux=float(ref_aux), cpu_seconds=cpu_s,
+         reduced=["tokens 4 x 256 (f32 on the CPU)"])
+    check(ok and dropped == ref_dropped > 0,
+          f"moe_ep at capacity {cfg.capacity_factor}: card and CPU differ "
+          f"by {err}, drops {dropped} vs {ref_dropped}")
+    del e_cpu, x, out, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------- train_sharded --
+SHARDED_ARCH = "qwen3-4b"
+SHARDED_CUT = dict(n_layers=4)
+SHARDED_SHAPE = (4, 1024)
+SHARDED_STEPS = 3
+SHARDED_TCFG = TrainConfig(n_micro=2, opt=TRAIN_OPT)
+#: test_torch_train.py::test_three_train_steps_match_jax's tolerance on
+#: the parameters' change, where the bits differ
+SHARDED_RTOL = 1e-2
+#: the gradient norms, where the bits differ: the same gradients summed
+#: in another order (AdamW ignores the gradient's scale, so the norm is
+#: what shows a wrong scale in the reduction)
+SHARDED_NORM_RTOL = 1e-4
+
+
+def sharded_steps(cfg, p0, toks, mesh):
+    """Three steps from p0: unsharded (mesh None) or sharded on mesh.
+    Returns (params by name, losses, gradient norms, step seconds, flash
+    launches)."""
+    model = build_model(cfg, device=DEV)
+    model.load_state_dict(p0)
+    if mesh is None:
+        state = adamw_init(dict(model.named_parameters()))
+        params = dict(model.named_parameters())
+        step = make_train_step(model, SHARDED_TCFG)
+    else:
+        sharded = ShardedTraining(model, mesh, DEFAULT_RULES)
+        state = sharded.init_opt_state(SHARDED_TCFG.opt.state_dtype)
+        params = sharded.params
+        step = sharded.make_step(SHARDED_TCFG)
+    reset_counts()
+    losses, norms, secs = [], [], []
+    for _ in range(SHARDED_STEPS):
+        state, met, dt = timed_step(step, state, {"tokens": toks})
+        losses.append(met["loss"].float().cpu())
+        norms.append(met["grad_norm"].float().cpu())
+        secs.append(dt)
+    launches = fa.flash_attention.launches
+    out = {n: p.detach().clone() for n, p in params.items()}
+    del model, state, step, params
+    torch.cuda.empty_cache()
+    return out, losses, norms, secs, launches
+
+
+def phase_train_sharded():
+    """World size 1 on NCCL; the process group is destroyed however the
+    phase ends. Returns the sharded run's flash launches."""
+    rendezvous = tempfile.mkdtemp()
+    dist.init_process_group("nccl", init_method=f"file://{rendezvous}/rv",
+                            world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config(SHARDED_ARCH).scaled(**SHARDED_CUT)
+        model = build_model(cfg, device=DEV)
+        model.init_params(torch.Generator(device=DEV).manual_seed(41))
+        p0 = {n: t.detach().clone() for n, t in model.state_dict().items()}
+        del model
+        toks = torch.randint(0, cfg.vocab, SHARDED_SHAPE, device=DEV,
+                             generator=torch.Generator(device=DEV)
+                             .manual_seed(42))
+        torch.cuda.reset_peak_memory_stats()
+        want, want_l, want_g, want_s, want_n = sharded_steps(cfg, p0, toks,
+                                                             None)
+        got, got_l, got_g, got_s, got_n = sharded_steps(cfg, p0, toks, mesh)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        differ = {n: (got[n].float() - want[n].float()).abs().max().item()
+                  for n in want if not bit_equal(got[n], want[n])}
+        num = sum(float(torch.sum(torch.square(got[n].float()
+                                               - want[n].float())))
+                  for n in want)
+        den = sum(float(torch.sum(torch.square(want[n].float()
+                                               - p0[n].float())))
+                  for n in want)
+        rel = math.sqrt(num / den)
+        losses_equal = all(bit_equal(a, b) for a, b in zip(got_l, want_l))
+        norms_equal = all(bit_equal(a, b) for a, b in zip(got_g, want_g))
+        emit(phase="train_sharded", arch=SHARDED_ARCH, n_layers=cfg.n_layers,
+             batch=SHARDED_SHAPE[0], seq_len=SHARDED_SHAPE[1],
+             n_micro=SHARDED_TCFG.n_micro, steps=SHARDED_STEPS,
+             dtype=cfg.dtype, backend=dist.get_backend(),
+             world_size=dist.get_world_size(), mesh=dict(data=1, model=1),
+             leaves=len(want), bit_equal=not differ,
+             losses_bit_equal=losses_equal,
+             losses=[float(v) for v in got_l],
+             grad_norms_bit_equal=norms_equal,
+             grad_norms=[float(v) for v in got_g],
+             unsharded_grad_norms=[float(v) for v in want_g],
+             leaves_differing=sorted(differ), max_abs_diff=differ,
+             param_rel_err=rel, param_rtol=SHARDED_RTOL,
+             step_seconds=got_s, unsharded_step_seconds=want_s,
+             launches=got_n, unsharded_launches=want_n, peak_mem_gb=peak,
+             reduced=reduced(SHARDED_ARCH, cfg))
+        check(got_n > 0 and got_n == want_n,
+              f"train_sharded: flash launches {got_n} vs {want_n}")
+        check(rel <= SHARDED_RTOL and all(
+            torch.allclose(a, b, rtol=1e-3) for a, b in zip(got_l, want_l))
+            and all(torch.allclose(a, b, rtol=SHARDED_NORM_RTOL)
+                    for a, b in zip(got_g, want_g)),
+              f"train_sharded: the sharded step left the unsharded one by "
+              f"{rel} (leaves {sorted(differ)})")
+        return got_n
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(rendezvous, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+# -------------------------------------------------------------- dryrun --
+DRYRUN_ROWS, DRYRUN_SKIPS = 80, 16
+DRYRUN_LIMIT_S = 600
+
+
+def pin_threads(cores):
+    """Every thread of this process on ``cores`` (threads made later
+    inherit the main thread's set)."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cores)
+        except ProcessLookupError:  # the thread has ended
+            pass
+
+
+def start_dryrun(out_dir):
+    """The dry run of every cell on both meshes in a CPU process of its
+    own (no card: CUDA_VISIBLE_DEVICES empty), beside the card phases. It
+    gets the last core of this process's set and this process keeps the
+    others until the dry run is read, so the host-timed phases beside it
+    share no core with it (on a one-core host nothing is pinned)."""
+    cores = sorted(os.sched_getaffinity(0))
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    log = open(Path(out_dir) / "dryrun.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--both-meshes", "--json", str(Path(out_dir) / "dryrun.json")],
+        stdout=log, stderr=subprocess.STDOUT, env=env,
+        cwd=Path(__file__).resolve().parent)
+    if len(cores) > 1:
+        os.sched_setaffinity(proc.pid, {cores[-1]})
+        pin_threads(set(cores[:-1]))
+    emit(phase="dryrun", check="start", cores=len(cores),
+         dryrun_core=cores[-1] if len(cores) > 1 else None)
+    return proc, log, time.perf_counter(), set(cores)
+
+
+def phase_dryrun(started):
+    """Wait for the dry run (killed past DRYRUN_LIMIT_S from its start),
+    print its rows, hold its counts."""
+    proc, log, t0, cores = started
+    out_dir = Path(log.name).parent
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_LIMIT_S
+                                   - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    finally:
+        log.close()
+        pin_threads(cores)
+    text = (out_dir / "dryrun.log").read_text()
+    rows = (json.loads((out_dir / "dryrun.json").read_text())
+            if (out_dir / "dryrun.json").exists() else [])
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for r in rows:
+        emit(phase="dryrun", **{k: r.get(k) for k in (
+            "arch", "shape", "status", "mesh", "n_devices", "n_params",
+            "n_active_params", "model_flops_global", "compute_s",
+            "memory_s", "collective_s", "dominant", "useful_flop_fraction",
+            "roofline_fraction", "count_s")},
+             per_device_gib=(r["memory"]["per_device_total"] / 2**30
+                             if "memory" in r else None),
+             reason=r.get("reason") or r.get("error"))
+    status = [r["status"] for r in rows]
+    summary = [ln for ln in text.splitlines() if ln.startswith("dryrun:")]
+    emit(phase="dryrun", check="summary", rc=rc, rows=len(rows),
+         skip=status.count("SKIP"), fail=status.count("FAIL"),
+         line=summary[-1] if summary else None,
+         seconds_from_start=time.perf_counter() - t0)
+    check(rc == 0 and len(rows) == DRYRUN_ROWS
+          and status.count("SKIP") == DRYRUN_SKIPS and "FAIL" not in status,
+          f"dryrun: rc {rc}, {len(rows)} rows, {status.count('SKIP')} SKIP, "
+          f"{status.count('FAIL')} FAIL; {text[-1500:]}")
+
+
 PER_CALL_KEYS = ("shape", "variant", "n_split", "ms", "host_us",
                  "device_ms", "simt_ms", "simt_host_us", "simt_device_ms",
                  "plain_ms", "library_ms", "library_host_us",
@@ -2679,19 +2997,37 @@ def main() -> None:
          libraries=[p.name for p in libs], ptxas=ptxas)
 
     done = {}
+    # the dry run is host work: it runs beside the card phases 3-9, on a
+    # core they do not use
     runs = {"mapreduce": phase_mapreduce,
             "mesh": lambda: phase_mesh(done.pop("mapreduce")),
             "fill": phase_fill,
             "lockstep": phase_lockstep, "scheduler": phase_scheduler,
-            "sweep_pool": phase_sweep_pool, "kernel": phase_kernel,
+            "sweep_pool": phase_sweep_pool,
+            "dryrun_start": lambda: start_dryrun(tempfile.mkdtemp()),
+            "kernel": phase_kernel,
             "wiring": phase_wiring,
             "serve": phase_serve, "times": phase_times, "grad": phase_grad,
-            "train_wiring": phase_train_wiring, "train": phase_train}
-    for name, run in runs.items():
-        t0 = time.perf_counter()
-        done[name] = run()
-        emit(phase="phase_seconds", name=name,
-             seconds=time.perf_counter() - t0)
+            "train_wiring": phase_train_wiring, "train": phase_train,
+            "moe_ep": phase_moe_ep, "train_sharded": phase_train_sharded,
+            "dryrun": lambda: phase_dryrun(done.pop("dryrun_start"))}
+    try:
+        for name, run in runs.items():
+            t0 = time.perf_counter()
+            done[name] = run()
+            if name != "dryrun_start":
+                emit(phase="phase_seconds", name=name,
+                     seconds=time.perf_counter() - t0)
+    finally:
+        if "dryrun_start" in done:  # a phase failed before the dry run's
+            proc, log, _, cores = done.pop("dryrun_start")
+            proc.kill()
+            proc.wait()
+            log.close()
+            pin_threads(cores)
+    # the sharded step's flash launches beside the training runs'
+    done["train"][0][f"sharded:{SHARDED_ARCH}"] = {
+        "flash_attention": done["train_sharded"], "gla_scan": 0}
 
     print(smi, flush=True)
     emit(kernels=kernels_line(done["kernel"], *done["serve"], done["times"],

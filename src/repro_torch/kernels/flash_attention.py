@@ -244,7 +244,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``variant`` (default ``choose_variant``) and ``n_split`` (default
     ``decode_splits``; split only) pin the kernel for measurements and
     checks; the model path passes neither. Raises on inputs that require
-    grad under grad mode (``kernels.ops`` carries gradients)."""
+    grad under grad mode (``kernels.ops`` carries gradients). On ``meta``
+    tensors (the dry run) it is the kernel's stand-in, ``kernels.meta``."""
     refuse_grad("flash_attention", q, k, v)
     if variant is None:
         variant = choose_variant(q.dtype, q.shape[1])
@@ -254,6 +255,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if dev.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    qpos=qpos, kpos=kpos)
+    if dev.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.flash_attention(q, k, v, qpos, kpos, causal, window)
     if dev.type != "cuda":
         raise ValueError(f"no flash_attention for device {dev}")
     qpos = _positions(qpos, q.shape[1], dev)

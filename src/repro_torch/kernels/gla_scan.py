@@ -135,13 +135,17 @@ def gla_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``variant`` (default ``choose_variant``) pins the kernel, for
     measurements and checks; the model path does not pass it. Raises on
     inputs that require grad under grad mode (``kernels.ops`` carries
-    gradients)."""
+    gradients). On ``meta`` tensors (the dry run) it is the kernel's
+    stand-in, ``kernels.meta``."""
     refuse_grad("gla_scan", r, k, v, logw, u, initial_state)
     if variant is not None:
         _check_variant(variant, r.dtype)
     variant = variant or choose_variant(r.dtype)
     if r.device.type == "cpu":
         return gla_scan_ref(r, k, v, logw, u, initial_state=initial_state)
+    if r.device.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.gla_scan(r, k, v, logw, u, initial_state)
     if r.device.type != "cuda":
         raise ValueError(f"no gla_scan for device {r.device}")
     _check(r, k, v, logw, u, initial_state)

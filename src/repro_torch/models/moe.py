@@ -1,7 +1,8 @@
 """Mixture-of-Experts FFN with top-k routing and capacity-bounded
 sort-based dispatch (dropping on overflow), and an optional parallel
-dense-residual FFN (arctic). Counterpart of ``repro/models/moe.py`` and of
-the single-device branch of ``repro/models/moe_ep.py::moe_ffn_ep``.
+dense-residual FFN (arctic). Counterpart of ``repro/models/moe.py``; each
+layer's FFN is ``models.moe_ep.moe_ffn_ep``, expert-parallel under active
+sharding rules and this dense dispatch otherwise.
 
 Dispatch is sort-based, as in JAX: the (token, expert-choice) pairs are
 stably sorted by expert, each pair's rank inside its expert decides
@@ -15,13 +16,12 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from repro_torch import flags
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.autograd import PlainSpanFn
 from repro_torch.models.common import ParamSpec, tree_leaves
@@ -81,15 +81,27 @@ def route(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor
     experts (T,k) by falling probability, Switch-style aux loss).
     ``torch.topk`` and ``jax.lax.top_k`` may order tied probabilities
     differently; continuous inputs give no ties."""
+    probs, gates, topi = route_probs(cfg, router, xt)
+    return gates, topi, switch_aux(cfg, probs, topi)
+
+
+def route_probs(cfg: ArchConfig, router: torch.Tensor, xt: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``route`` without the aux loss: (probs (T, E) f32, gates, experts)."""
     probs = torch.softmax(xt.float() @ router, dim=-1)
     topv, topi = torch.topk(probs, cfg.moe_topk, dim=-1)
     gates = topv / topv.sum(-1, keepdim=True).clamp_min(1e-9)
+    return probs, gates.to(xt.dtype), topi
+
+
+def switch_aux(cfg: ArchConfig, probs: torch.Tensor, topi: torch.Tensor
+               ) -> torch.Tensor:
+    """E * sum_e f_e * p_e over the tokens of ``probs`` (T, E)."""
     E = cfg.n_experts
-    density = torch.zeros(E, dtype=torch.float32, device=xt.device)
+    density = torch.zeros(E, dtype=torch.float32, device=probs.device)
     density.index_add_(0, topi.reshape(-1),
-                       torch.ones(topi.numel(), device=xt.device))
-    aux = E * torch.sum(density / topi.numel() * probs.mean(dim=0))
-    return gates.to(xt.dtype), topi, aux
+                       torch.ones(topi.numel(), device=probs.device))
+    return E * torch.sum(density / topi.numel() * probs.mean(dim=0))
 
 
 def dispatch(cfg: ArchConfig, topi: torch.Tensor, C: int
@@ -145,6 +157,18 @@ def _combine(y: torch.Tensor, gates: torch.Tensor, order: torch.Tensor,
     return out
 
 
+def expert_compute(cfg: ArchConfig, wi: torch.Tensor, wo: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """x: (E', n, d) tokens for E' experts -> their outputs (E', n, d)."""
+    h = torch.bmm(x, wi)
+    if cfg.act == "swiglu":
+        gate, up = h.chunk(2, dim=-1)
+        h = F.silu(gate.float()).to(up.dtype) * up
+    else:
+        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
+    return torch.bmm(h, wo)
+
+
 def moe_ffn(cfg: ArchConfig, p: Experts, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss). Sort-based dispatch."""
@@ -162,31 +186,12 @@ def moe_ffn(cfg: ArchConfig, p: Experts, x: torch.Tensor
     buf = PlainSpanFn.apply("moe_dispatch",
                             functools.partial(_to_experts, rows=E * C + 1),
                             xt, ts, dest)
-    h = torch.bmm(buf[:-1].reshape(E, C, d), p.wi)
-    if cfg.act == "swiglu":
-        gate, up = h.chunk(2, dim=-1)
-        h = F.silu(gate.float()).to(up.dtype) * up
-    else:
-        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    y = torch.bmm(h, p.wo).reshape(E * C, d)
+    y = expert_compute(cfg, p.wi, p.wo, buf[:-1].reshape(E, C, d))
+    y = y.reshape(E * C, d)
     out = PlainSpanFn.apply("moe_dispatch",
                             functools.partial(_combine, dtype=x.dtype),
                             y, gates, order, dest, keep, topi)
     return out.reshape(B, S, d), aux
-
-
-def moe_ffn_ep(cfg: ArchConfig, p: Experts, x: torch.Tensor,
-               mesh: Optional[object] = None
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The expert-parallel MoE FFN of JAX ``moe_ep.moe_ffn_ep``. On one
-    device (no mesh), or with ``REPRO_MOE_DENSE=1``, it is the dense
-    sort-based ``moe_ffn``, as JAX falls back. The expert-parallel body
-    (the all_to_all dispatch over a mesh) is not ported yet; it will use
-    ``sharding.collectives``, which is."""
-    if mesh is None or flags.moe_dense():
-        return moe_ffn(cfg, p, x)
-    raise NotImplementedError(
-        "expert-parallel MoE dispatch over a mesh is not ported yet")
 
 
 class MoETransformerLM(TransformerLM):
@@ -214,6 +219,8 @@ class MoETransformerLM(TransformerLM):
         return total
 
     def ffn(self, p: MoEBlock, h: torch.Tensor) -> torch.Tensor:
+        # models.moe_ep builds on this module, so it is imported here
+        from repro_torch.models.moe_ep import moe_ffn_ep
         cfg = self.cfg
         out, _ = moe_ffn_ep(cfg, p.moe, h)
         if cfg.moe_dense_residual:

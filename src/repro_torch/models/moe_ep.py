@@ -1,0 +1,194 @@
+"""Expert-parallel MoE dispatch with an explicit all_to_all. Counterpart of
+``repro/models/moe_ep.py``.
+
+The token->expert shuffle is what it physically is: an all_to_all over
+the expert-parallel ('model') axis, as JAX runs it inside ``shard_map``.
+Each rank
+
+  1. takes its block of tokens: its rows of the batch (the caller holds
+     B/|batch axes| of them) and its 1/M of the sequence over the EP axis,
+  2. routes them (local top-k, local capacity C),
+  3. packs an (M, E/M, C, d) send buffer,
+  4. exchanges it over the EP axis (tokens travel to their expert's rank),
+  5. runs its E/M local experts over what it received,
+  6. exchanges the results back and combines them with the gates,
+
+and every rank returns the full sequence again (an all-gather over the EP
+axis), which the layers around the FFN need. ``aux`` is the per-rank
+Switch estimator averaged over all ranks (JAX's ``pmean``), without a
+gradient across ranks: neither package's loss reads it.
+
+Wire bytes a rank puts on the EP axis per layer and forward, with
+n_tok = B/|batch| * S tokens of d_model elements: the exchanges
+2 (M-1)/M E C d, and the sequence all-gather (M-1)/M n_tok d.
+
+Three things differ from JAX's ``shard_fn``, none in the arithmetic:
+- The router runs on the rank's whole sequence, and the rank takes its
+  slice of the probabilities, gates and token rows (``SliceDim``, whose
+  backward gathers the slices' gradients): a token's routing is its own,
+  so the values are the slice's, and every model rank then holds the
+  whole gradient of the router and of its input, as the layers around
+  the FFN (repeated on every model rank) need.
+- The combine adds each token's k values by rising expert id
+  (``moe._combine``), where JAX scatter-adds them.
+- The exchange is a callable: ``all_to_all_single`` over the EP group
+  here; ``ep_ranks`` also runs M ranks in one process with the exchange
+  done as the transpose the all_to_all performs.
+
+JAX's fallbacks to the dense ``moe_ffn`` are kept: no active rules,
+``REPRO_MOE_DENSE=1``, M <= 1, E % M and S % M. JAX's B % |batch| is the
+caller's: it holds its rows already, split where the batch is split
+(``train/sharded.py`` refuses a batch that does not divide).
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Sequence, Tuple
+
+import torch
+
+from repro_torch import flags
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.moe import (Experts, _combine, _to_experts, dispatch,
+                                    expert_compute, moe_ffn, route_probs,
+                                    switch_aux)
+from repro_torch.sharding import collectives as col
+from repro_torch.sharding.params import held_over
+from repro_torch.sharding.partition import (current_rules, mesh_axes,
+                                            mesh_axis_size)
+
+#: exchange(one (M, E/M, C, d) buffer per rank run here) -> what each of
+#: those ranks receives, in the same layout
+Exchange = Callable[[List[torch.Tensor]], List[torch.Tensor]]
+
+
+def local_capacity(cfg: ArchConfig, t_loc: int) -> int:
+    """JAX's local per-expert capacity, 8-aligned."""
+    E, k = cfg.n_experts, cfg.moe_topk
+    return max(8, int(-(-cfg.capacity_factor * t_loc * k / E // 8) * 8))
+
+
+def _local_pack(cfg: ArchConfig, xt: torch.Tensor, topi: torch.Tensor,
+                C: int):
+    """The (E, C, d) send buffer of the local tokens xt (T, d) with their
+    choices topi (T, k): (buffer, order, dest, keep), JAX's slots."""
+    E, k = cfg.n_experts, cfg.moe_topk
+    order, dest, keep = dispatch(cfg, topi, C)
+    buf = _to_experts(xt, order // k, dest, E * C + 1)
+    return buf[:-1].reshape(E, C, xt.shape[1]), order, dest, keep
+
+
+def _expert_compute(cfg: ArchConfig, wi: torch.Tensor, wo: torch.Tensor,
+                    recv: torch.Tensor) -> torch.Tensor:
+    """recv (M, E/M, C, d), per source rank the tokens for this rank's
+    experts -> their outputs in the same layout."""
+    M, El, C, d = recv.shape
+    y = expert_compute(cfg, wi, wo,
+                       recv.transpose(0, 1).reshape(El, M * C, d))
+    return y.reshape(El, M, C, d).transpose(0, 1).contiguous()
+
+
+def ep_ranks(cfg: ArchConfig, router: torch.Tensor, ranks: Sequence[int],
+             experts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+             x: torch.Tensor, M: int, C: int, exchange: Exchange,
+             split: Callable, join: Callable
+             ) -> Tuple[torch.Tensor, List[torch.Tensor], torch.Tensor]:
+    """The per-rank body for the EP ranks of index ``ranks``, whose local
+    experts are ``experts`` (one (wi, wo) pair a rank, E/M experts each),
+    all holding the rows x (B, S, d). ``split(t)`` gives each of those
+    ranks its sequence slice of t (B, S, ...); ``join(outs)`` makes the
+    full sequence of their outputs. Returns (join's output, [aux a rank],
+    the number of (token, choice) pairs dropped, a tensor)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_topk
+    w = S // M
+    probs, gates, topi = route_probs(cfg, router, x.reshape(B * S, d))
+    probs, topi = probs.reshape(B, S, E), topi.reshape(B, S, k)
+    packs, auxes = [], []
+    for m, xr, gr in zip(ranks, split(x), split(gates.reshape(B, S, k))):
+        ti = topi[:, m * w:(m + 1) * w].reshape(-1, k)
+        auxes.append(switch_aux(
+            cfg, probs[:, m * w:(m + 1) * w].reshape(-1, E), ti))
+        packs.append((_local_pack(cfg, xr.reshape(-1, d), ti, C), gr, ti))
+    recv = exchange([pk[0][0].reshape(M, E // M, C, d) for pk in packs])
+    back = exchange([_expert_compute(cfg, wi, wo, rv)
+                     for (wi, wo), rv in zip(experts, recv)])
+    outs, dropped = [], 0
+    for ((_, order, dest, keep), gr, ti), bk in zip(packs, back):
+        out = _combine(bk.reshape(E * C, d), gr.reshape(-1, k), order, dest,
+                       keep, ti, x.dtype)
+        outs.append(out.reshape(B, w, d))
+        dropped = dropped + (~keep).sum()
+    return join(outs), auxes, dropped
+
+
+def _local_experts(cfg: ArchConfig, p: Experts, mesh, ep_axis: str, M: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """This rank's E/M experts: the stored shard where the parameters are
+    placed over the EP axis (``sharding.params``), else its slice of the
+    whole tensors."""
+    El = cfg.n_experts // M
+    m = col.axis_index(mesh, ep_axis)
+    out = []
+    for name in ("wi", "wo"):
+        w = held_over(p, name, ep_axis)
+        if w is None:
+            w = getattr(p, name)
+        out.append(w[m * El:(m + 1) * El] if w.shape[0] != El else w)
+    return out[0], out[1]
+
+
+def virtual_exchange(bufs: List[torch.Tensor]) -> List[torch.Tensor]:
+    """The all_to_all among M ranks run in one process: rank r receives
+    chunk r of every rank's buffer, in rank order."""
+    return list(torch.stack(bufs).transpose(0, 1).unbind(0))
+
+
+def moe_ffn_ep_virtual(cfg: ArchConfig, p: Experts, x: torch.Tensor,
+                       M: int) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The EP body of M ranks of one data rank, run in one process on x
+    (B, S, d), the exchange a tensor transpose: (out, aux averaged over
+    the M ranks, dropped pairs)."""
+    B, S, _ = x.shape
+    E = cfg.n_experts
+    if E % M or S % M:
+        raise ValueError(f"E {E} and S {S} must divide by M {M}")
+    C = local_capacity(cfg, B * (S // M))
+    El = E // M
+    experts = [(p.wi[m * El:(m + 1) * El], p.wo[m * El:(m + 1) * El])
+               for m in range(M)]
+    out, auxes, dropped = ep_ranks(
+        cfg, p.router, range(M), experts, x, M, C, virtual_exchange,
+        lambda t: list(t.chunk(M, dim=1)), lambda outs: torch.cat(outs, 1))
+    return out, torch.stack(auxes).mean(), int(dropped)
+
+
+def moe_ffn_ep(cfg: ArchConfig, p: Experts, x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE FFN under the active (mesh, rules), with the
+    'experts' logical axis mapped to a mesh axis; the dense ``moe_ffn``
+    otherwise. x: this rank's rows (B, S, d), the whole sequence; returns
+    (out (B, S, d), aux)."""
+    active = current_rules()
+    if active is None or flags.moe_dense():
+        return moe_ffn(cfg, p, x)
+    mesh, rules = active
+    ep_axis = rules.get("experts")
+    M = mesh_axis_size(mesh, ep_axis)
+    if M <= 1 or cfg.n_experts % M:
+        return moe_ffn(cfg, p, x)
+    if isinstance(ep_axis, tuple):
+        ep_axis = ep_axis[0]
+    B, S, d = x.shape
+    if S % M:
+        return moe_ffn(cfg, p, x)
+    C = local_capacity(cfg, B * (S // M))
+    out, auxes, _ = ep_ranks(
+        cfg, p.router, [col.axis_index(mesh, ep_axis)],
+        [_local_experts(cfg, p, mesh, ep_axis, M)], x, M, C,
+        lambda bufs: [col.AllToAll.apply(bufs[0], mesh, ep_axis)],
+        lambda t: [col.SliceDim.apply(t, mesh, ep_axis, 1)],
+        lambda outs: col.GatherDim.apply(outs[0], mesh, ep_axis, 1, True))
+    everyone = tuple(mesh_axes(mesh))
+    aux = col.all_reduce_sum(auxes[0].detach(), mesh, everyone) / \
+        col.axis_size(mesh, everyone)
+    return out, aux

@@ -12,7 +12,9 @@ matrices keep the JAX layout (in, out), so ``x @ w`` is the JAX einsum and
 the converter only splits and renames. Each parameter is declared with its
 init style and logical axes (``_Params.add``); ``param_specs`` gives JAX's
 stacked spec tree and ``named_param_specs`` one spec a ``state_dict`` name.
-The models call no sharding ``hint`` yet: that comes with the sharded step.
+The models call no sharding ``hint``: the sharded step
+(``train/sharded.py``) stores each parameter as its shard and gathers it
+where the layer reads it, so activations are plain tensors.
 
 ``attn_impl`` picks the attention at every call site (forward, the
 training path, prefill, decode): ``"flash"`` (default) is the hand-written

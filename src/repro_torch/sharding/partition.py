@@ -1,8 +1,9 @@
 """Logical axes -> mesh placements, with the divisibility fallback.
 
 Counterpart of ``repro/sharding/partition.py``. Models declare *logical*
-axes on every parameter (``ParamSpec.axes``) and, once the sharded step
-calls it, on activations (``hint``). A ``Rules`` object maps logical names
+axes on every parameter (``ParamSpec.axes``), which place the sharded
+step's parameters (``sharding.params``); ``hint`` constrains a DTensor
+activation, where JAX's models call it. A ``Rules`` object maps logical names
 to mesh axes; a mapping whose dimension is not divisible by the mesh-axis
 size falls back to replication for that dim (the MaxText-style rule).
 

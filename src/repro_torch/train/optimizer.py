@@ -1,7 +1,6 @@
 """AdamW, as ``repro/train/optimizer.py`` computes it, and the logical
 axes of its ZeRO-1 state (``zero1_leaf_axes``, ``opt_state_axes``, on
-JAX's stacked spec tree; the sharded step that places the state by them
-is not ported yet).
+JAX's stacked spec tree; ``train/sharded.py`` places the state by them).
 
 The port's params are the model's named parameters, one leaf per layer,
 where JAX stacks each layer leaf into (L, ...). The state mirrors them:
@@ -94,8 +93,7 @@ def adamw_init(params: Mapping[str, torch.Tensor],
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(piece.float()))
-                          for x in tree.values() for (piece,) in _pieces(x)))
+    return torch.sqrt(sum(s for x in tree.values() for s in piece_sums(x)))
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
@@ -107,6 +105,44 @@ def decays(name: str, p: torch.Tensor) -> bool:
     return name.startswith(("layers.", "encoder.")) or p.dim() >= 2
 
 
+def adamw_scalars(cfg: OptConfig, step: torch.Tensor, gnorm: torch.Tensor
+                  ) -> Dict[str, torch.Tensor]:
+    """One step's scalars: the new step, the clip scale of the gradient
+    norm ``gnorm``, the learning rate and the bias corrections."""
+    step = step + 1
+    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
+                         max=1.0) if cfg.grad_clip > 0
+             else torch.ones((), device=gnorm.device))
+    stepf = step.to(torch.float32)
+    return {"step": step, "scale": scale, "lr": lr_schedule(cfg, step),
+            "bc1": 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device),
+                                 stepf),
+            "bc2": 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device),
+                                 stepf)}
+
+
+@torch.no_grad()
+def adamw_leaf(cfg: OptConfig, wd: bool, p: torch.Tensor, grad: torch.Tensor,
+               m: torch.Tensor, v: torch.Tensor,
+               sc: Dict[str, torch.Tensor]) -> None:
+    """AdamW on one leaf (or one slice of it: the update is elementwise),
+    in place, in pieces of CHUNK; ``wd``: whether it decays."""
+    for pp, gp, mp, vp in _pieces(p, grad, m, v):
+        g = gp.float() * sc["scale"]
+        m32, v32 = mp.float(), vp.float()  # the state itself when f32
+        m32.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v32.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
+        del g
+        delta = (m32 / sc["bc1"]).div_(torch.sqrt(v32 / sc["bc2"])
+                                       .add_(cfg.eps))
+        if wd:
+            delta.add_(cfg.weight_decay * pp.float())
+        pp.copy_(pp.float() - sc["lr"] * delta)
+        if m32 is not mp:
+            mp.copy_(m32)
+            vp.copy_(v32)
+
+
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, grads: Mapping[str, torch.Tensor],
                  state: Dict[str, object],
@@ -115,33 +151,18 @@ def adamw_update(cfg: OptConfig, grads: Mapping[str, torch.Tensor],
     """One AdamW step with global-norm clipping and bias correction.
     Updates ``params`` and the state's m/v in place, one leaf at a time;
     returns (state, {"grad_norm", "lr"})."""
-    step = state["step"] + 1
     gnorm = global_norm(grads)
-    scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
-                         max=1.0) if cfg.grad_clip > 0
-             else torch.ones((), device=gnorm.device))
-    lr = lr_schedule(cfg, step)
-    stepf = step.to(torch.float32)
-    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, device=stepf.device), stepf)
-    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, device=stepf.device), stepf)
+    sc = adamw_scalars(cfg, state["step"], gnorm)
     for name, p in params.items():
-        wd = cfg.weight_decay > 0 and decays(name, p)
-        for pp, gp, m, v in _pieces(p, grads[name], state["m"][name],
-                                    state["v"][name]):
-            g = gp.float() * scale
-            m32, v32 = m.float(), v.float()  # the state itself when f32
-            m32.mul_(cfg.b1).add_((1 - cfg.b1) * g)
-            v32.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
-            del g
-            delta = (m32 / bc1).div_(torch.sqrt(v32 / bc2).add_(cfg.eps))
-            if wd:
-                delta.add_(cfg.weight_decay * pp.float())
-            pp.copy_(pp.float() - lr * delta)
-            if m32 is not m:
-                m.copy_(m32)
-                v.copy_(v32)
-    state["step"] = step
-    return state, {"grad_norm": gnorm, "lr": lr}
+        adamw_leaf(cfg, cfg.weight_decay > 0 and decays(name, p), p,
+                   grads[name], state["m"][name], state["v"][name], sc)
+    state["step"] = sc["step"]
+    return state, {"grad_norm": gnorm, "lr": sc["lr"]}
+
+
+def piece_sums(x: torch.Tensor) -> list:
+    """The sums of squares ``global_norm`` adds for one leaf, in order."""
+    return [torch.sum(torch.square(piece.float())) for (piece,) in _pieces(x)]
 
 
 # --------------------------------------------------------------- sharding --

@@ -34,8 +34,30 @@ def make_train_step(model, tcfg: TrainConfig = TrainConfig()) -> Callable:
     With ``compress_grads`` the gradients take the int8 error-feedback
     round trip first, the residual kept in ``opt_state["ef"]``. Metrics:
     loss, grad_norm, lr (and tokens when n_micro == 1), as 0-dim tensors.
+    The step on a mesh is ``train.sharded.ShardedTraining.make_step``.
     """
     params = dict(model.named_parameters())
+
+    def train_step(opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor]
+                   ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
+        loss, metrics, grads = accumulate_grads(model, params, tcfg, batch)
+        if tcfg.compress_grads:
+            grads, opt_state["ef"] = compress_decompress(
+                grads, opt_state.get("ef"))
+        opt_state, opt_metrics = adamw_update(tcfg.opt, grads, opt_state,
+                                              params)
+        del grads
+        return opt_state, dict(metrics, **opt_metrics, loss=loss)
+
+    return train_step
+
+
+def accumulate_grads(model, params: Dict[str, torch.Tensor],
+                     tcfg: TrainConfig, batch: Dict[str, torch.Tensor]):
+    """(loss, metrics, {name: gradient}) of ``model.loss`` on ``batch``
+    w.r.t. ``params`` (the tensors that hold the parameters), over
+    ``tcfg.n_micro`` microbatches: the gradients in the param dtype for
+    one, else f32 sums divided by n_micro."""
 
     def grads_of(mb: Dict[str, torch.Tensor]):
         for p in params.values():
@@ -47,39 +69,26 @@ def make_train_step(model, tcfg: TrainConfig = TrainConfig()) -> Callable:
             p.grad = None
         return loss.detach(), metrics, grads
 
-    def train_step(opt_state: Dict[str, Any], batch: Dict[str, torch.Tensor]
-                   ) -> Tuple[Dict[str, Any], Dict[str, torch.Tensor]]:
-        n = tcfg.n_micro
-        if n == 1:
-            loss, metrics, grads = grads_of(batch)
-            metrics = {k: v.detach() for k, v in metrics.items()}
-        else:
-            grads = {name: torch.zeros(p.shape, dtype=torch.float32,
-                                       device=p.device)
-                     for name, p in params.items()}
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=next(iter(grads.values())).device)
-            for i in range(n):
-                mb = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
-                      for k, x in batch.items()}
-                loss_i, _, g = grads_of(mb)
-                loss_sum += loss_i
-                for name, acc in grads.items():
-                    acc += g[name].float()
-                del g
-            loss = loss_sum / n
-            for acc in grads.values():
-                acc /= n
-            metrics = {"loss": loss}
-        if tcfg.compress_grads:
-            grads, opt_state["ef"] = compress_decompress(
-                grads, opt_state.get("ef"))
-        opt_state, opt_metrics = adamw_update(tcfg.opt, grads, opt_state,
-                                              params)
-        del grads
-        return opt_state, dict(metrics, **opt_metrics, loss=loss)
-
-    return train_step
+    n = tcfg.n_micro
+    if n == 1:
+        loss, metrics, grads = grads_of(batch)
+        return loss, {k: v.detach() for k, v in metrics.items()}, grads
+    grads = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for name, p in params.items()}
+    loss_sum = torch.zeros((), dtype=torch.float32,
+                           device=next(iter(grads.values())).device)
+    for i in range(n):
+        mb = {k: x.reshape((n, x.shape[0] // n) + x.shape[1:])[i]
+              for k, x in batch.items()}
+        loss_i, _, g = grads_of(mb)
+        loss_sum += loss_i
+        for name, acc in grads.items():
+            acc += g[name].float()
+        del g
+    loss = loss_sum / n
+    for acc in grads.values():
+        acc /= n
+    return loss, {"loss": loss}, grads
 
 
 def init_train_state(model, generator: torch.Generator,

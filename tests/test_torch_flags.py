@@ -21,6 +21,7 @@ from repro_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import common as cm  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
+from repro_torch.models.moe_ep import moe_ffn_ep  # noqa: E402
 
 # f32 on both sides: summation order only, as the model tests hold it
 ATOL, RTOL = 1e-4, 1e-4
@@ -135,9 +136,9 @@ def test_moe_dense_leaves_the_single_device_moe_unchanged(monkeypatch):
         p.data.copy_(torch.from_numpy(
             (0.2 * rng.randn(*p.shape)).astype(np.float32)))
     tx = torch.from_numpy(x)
-    off, _ = moe.moe_ffn_ep(tcfg, experts, tx)
+    off, _ = moe_ffn_ep(tcfg, experts, tx)
     monkeypatch.setenv("REPRO_MOE_DENSE", "1")
-    on, _ = moe.moe_ffn_ep(tcfg, experts, tx)
+    on, _ = moe_ffn_ep(tcfg, experts, tx)
     assert torch.equal(off, on)
     assert torch.equal(on, moe.moe_ffn(tcfg, experts, tx)[0])
     from repro.models.moe_ep import moe_ffn_ep as jax_ep

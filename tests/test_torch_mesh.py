@@ -1,5 +1,8 @@
 """The port's multi-rank layer against the JAX package: the hierarchical
-collectives and the MapReduce mesh shuffle (JoSS policies A and B).
+collectives, the MapReduce mesh shuffle (JoSS policies A and B), the
+expert-parallel MoE and the sharded train step (against the port's
+single-device step and JAX's sharded step), whose collectives the dry run
+reckons byte for byte.
 
 One module-scoped run starts 8 gloo ranks (tests/torch_mesh_ranks.py)
 beside one JAX process with 8 fake CPU devices (``jax.set_mesh``, as the
@@ -18,12 +21,19 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.mapreduce import JOBS as JJOBS  # noqa: E402
 from repro.mapreduce import engine as jengine  # noqa: E402
 from repro_torch import mapreduce as mr  # noqa: E402
+from repro_torch.configs import ShapeCell, get_config  # noqa: E402
+from repro_torch.convert import params_to_numpy  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models.moe import moe_ffn  # noqa: E402
+from repro_torch.sharding import MeshShape  # noqa: E402
+from repro_torch.train import adamw_init, make_train_step  # noqa: E402
 from repro_torch.mapreduce import engine  # noqa: E402
 from repro_torch.mapreduce.jobs import EMPTY, KVBatch  # noqa: E402
 
@@ -43,6 +53,19 @@ RTOL = 1e-6
 #: a invariant->variant collective"), so the port's II is held to WC's
 #: reducers and to the Counter instead
 JAX_JOBS = ("WC",)
+#: JAX's EP tolerance (test_multidevice.py::test_moe_ep_matches_dense_dispatch)
+EP_ATOL, EP_RTOL = 2e-4, 1e-3
+#: the EP aux against JAX's (the same per-rank estimator, pmean'd)
+AUX_ATOL = 1e-5
+#: test_torch_train.py::test_three_train_steps_match_jax's tolerance on
+#: the parameters' change over three steps
+STEPS_RTOL = 1e-2
+#: the sharded step's gradient norms against the single-device step's:
+#: the same f32 gradients, summed over the ranks in another order
+NORM_RTOL = 1e-5
+#: the losses and gradient norms against JAX's step (XLA's and torch's
+#: kernels, f32)
+JAX_STEP_RTOL = 1e-5
 
 JAX_PROG = textwrap.dedent("""
     import sys
@@ -84,6 +107,62 @@ JAX_PROG = textwrap.dedent("""
             for field, val in zip(("unique_keys", "counts", "n_unique",
                                    "dropped"), res):
                 out[f"mr_{run}_{job}_{field}"] = np.asarray(val)
+    import repro.configs as jconfigs
+    from repro.models.moe_ep import moe_ffn_ep
+    from repro.sharding import DEFAULT_RULES, use_rules
+    from torch_mesh_ranks import EP_CASES, EP_MESH, ep_cfg, ep_inputs
+    mesh = jax.make_mesh(*EP_MESH)
+    for case in EP_CASES:
+        cfg = ep_cfg(case, jconfigs)
+        x, p, _ = ep_inputs(case)
+        p = {k: jnp.asarray(v) for k, v in p.items()}
+        with use_rules(mesh, DEFAULT_RULES):
+            y, aux = jax.jit(lambda pp, xx: moe_ffn_ep(cfg, pp, xx))(
+                p, jnp.asarray(x))
+        out[f"ep_{case}_out"] = np.asarray(y)
+        out[f"ep_{case}_aux"] = np.asarray(aux)
+    # test_multidevice.py:107's sharded step, run: JAX's make_train_step
+    # jitted with the parameters placed by tree_shardings, from the
+    # port's seeded parameters; JAX 0.9's make_mesh gives explicit axes,
+    # under which the model's gathers do not resolve, so the axes are
+    # GSPMD's auto ones, as the package was written for
+    import dataclasses
+    from jax.sharding import AxisType
+    from repro.models import build_model
+    from repro.models.common import axes_tree, shape_tree
+    from repro.sharding import tree_shardings
+    from repro.train import OptConfig, TrainConfig, adamw_init, make_train_step
+    from repro_torch.convert import params_to_numpy
+    from torch_mesh_ranks import STEP_OPT, STEP_RUNS, step_model, step_tokens
+    for run, (arch, shape, names, n_micro, steps, _, over, *rest) in (
+            STEP_RUNS.items()):
+        rules = DEFAULT_RULES.updated(**(rest[0] if rest else {}))
+        mesh = jax.make_mesh(shape, names,
+                             axis_types=(AxisType.Auto,) * len(names))
+        model = build_model(jconfigs.get_config(arch).smoke().scaled(**over))
+        specs = model.param_specs()
+        port = step_model(run)
+        params = jax.tree_util.tree_map(
+            lambda a, s: jnp.asarray(a, s.dtype),
+            params_to_numpy(port.cfg, port.state_dict()), shape_tree(specs))
+        psh = tree_shardings(mesh, rules, axes_tree(specs), shape_tree(specs))
+        params = jax.device_put(params, psh)
+        opt = adamw_init(params)
+        batch = {"tokens": jnp.asarray(step_tokens(run))}
+        step = make_train_step(model, TrainConfig(
+            n_micro=n_micro, opt=OptConfig(**dataclasses.asdict(STEP_OPT))))
+        losses, norms = [], []
+        with jax.set_mesh(mesh), use_rules(mesh, rules):
+            fn = jax.jit(step, in_shardings=(psh, None, None))
+            for _ in range(steps):
+                params, opt, m = fn(params, opt, batch)
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+        out[f"jstep_{run}_losses"] = np.array(losses)
+        out[f"jstep_{run}_grad_norms"] = np.array(norms)
+        for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
+            out[f"jstep_{run}_param_{jax.tree_util.keystr(path)}"] = (
+                np.asarray(leaf, np.float32))
     np.savez(sys.argv[1], **out)
 """)
 
@@ -262,6 +341,194 @@ def test_hint_redistributes_a_dtensor_and_host_mesh(runs):
         assert int(got[r]["hint_local_rows"]) == 16 // WORLD
         assert tuple(got[r]["host_mesh_shape"]) == (1, WORLD)
         assert tuple(got[r]["host_mesh_names"]) == ("data", "model")
+
+
+# ------------------------------------------------- expert-parallel MoE --
+def _ep_rows(got, key):
+    """The (2, 4) mesh's EP output over the batch: data rank di's rows
+    (rank 4 di + m holds them, the same for every m)."""
+    for r in range(WORLD):
+        np.testing.assert_array_equal(got[r][key], got[r - r % 4][key])
+    return np.concatenate([got[4 * di][key] for di in range(2)])
+
+
+def _dense(case, grads=False):
+    x, p, w = ranks_mod.port_experts(case, requires_grad=grads)
+    x.requires_grad_(grads)
+    y, aux = moe_ffn(ranks_mod.ep_cfg(case), p, x)
+    if grads:
+        (y * w).sum().backward()
+    return y.detach().numpy(), float(aux.detach()), x, p
+
+
+def _aux_close(got, want, case):
+    for r in range(WORLD):
+        assert abs(float(got[r][f"ep_{case}_aux"])
+                   - float(want[f"ep_{case}_aux"])) <= AUX_ATOL
+
+
+def test_moe_ep_equals_dense_and_jax(runs):
+    """JAX's recipe, capacity factor 8.0 (no drops): the port's EP equals
+    its dense moe_ffn and JAX's moe_ffn_ep; aux equals JAX's."""
+    got, want = runs
+    ep = _ep_rows(got, "ep_nodrop_out")
+    dense, _, _, _ = _dense("nodrop")
+    np.testing.assert_allclose(ep, dense, atol=EP_ATOL, rtol=EP_RTOL)
+    np.testing.assert_allclose(ep, want["ep_nodrop_out"], atol=EP_ATOL,
+                               rtol=EP_RTOL)
+    _aux_close(got, want, "nodrop")
+    assert int(got[0]["ep_nodrop_all_to_all"]) == 2
+
+
+def test_moe_ep_drops_equal_jax(runs):
+    """Capacity factor 0.5: the local capacity drops pairs (the output
+    leaves the dense one), the same pairs as JAX's EP drops."""
+    got, want = runs
+    ep = _ep_rows(got, "ep_drops_out")
+    dense, _, _, _ = _dense("drops")
+    assert not np.allclose(ep, dense, atol=EP_ATOL, rtol=EP_RTOL)
+    np.testing.assert_allclose(ep, want["ep_drops_out"], atol=EP_ATOL,
+                               rtol=EP_RTOL)
+    _aux_close(got, want, "drops")
+
+
+def test_moe_ep_gradient_equals_dense(runs):
+    """The EP backward (the exchanges' reverse, the sequence slice's
+    gather) gives the dense path's gradients: x by data rank, the router
+    whole on each model rank, each rank's block of the experts."""
+    got, _ = runs
+    _, _, x, p = _dense("nodrop", grads=True)
+    np.testing.assert_allclose(_ep_rows(got, "ep_grad_x"), x.grad.numpy(),
+                               atol=EP_ATOL, rtol=EP_RTOL)
+    np.testing.assert_allclose(
+        sum(got[4 * di]["ep_grad_router"] for di in range(2)),
+        p.router.grad.numpy(), atol=EP_ATOL, rtol=EP_RTOL)
+    for r in range(WORLD):
+        np.testing.assert_array_equal(got[r]["ep_grad_router"],
+                                      got[r - r % 4]["ep_grad_router"])
+    for k in ("wi", "wo"):
+        np.testing.assert_allclose(
+            sum(got[r][f"ep_grad_{k}"] for r in range(WORLD)),
+            getattr(p, k).grad.numpy(), atol=EP_ATOL, rtol=EP_RTOL)
+
+
+def test_moe_lm_runs_expert_parallel_under_the_rules(runs):
+    """MoETransformerLM under use_rules, no mesh argument: one exchange
+    pair a layer, logits equal to its dense dispatch's."""
+    got, _ = runs
+    for r in range(WORLD):
+        np.testing.assert_allclose(got[r]["lm_ep"], got[r]["lm_dense"],
+                                   atol=EP_ATOL, rtol=EP_RTOL)
+        assert int(got[r]["lm_ep_all_to_all"]) == 2 * 2
+
+
+# ------------------------------------------------- the sharded train step --
+def _single_device(run):
+    """The run's steps on one device, from the same parameters: (p0,
+    params, losses, gradient norms), the parameters by state_dict name."""
+    model = ranks_mod.step_model(run)
+    p0 = {n: t.detach().numpy().copy() for n, t in model.named_parameters()}
+    tcfg = ranks_mod.step_tcfg(run)
+    step = make_train_step(model, tcfg)
+    state = adamw_init(dict(model.named_parameters()))
+    batch = {"tokens": torch.from_numpy(ranks_mod.step_tokens(run))}
+    losses, norms = [], []
+    for _ in range(ranks_mod.STEP_RUNS[run][4]):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    return p0, {n: t.detach().numpy() for n, t in model.named_parameters()
+                }, losses, norms
+
+
+def _change_rel(got, want, p0):
+    """|got - want| / |want - p0| over all leaves: the parameters' change
+    against the reference's change."""
+    num = sum(np.square(got[n] - want[n]).sum() for n in want)
+    den = sum(np.square(want[n] - p0[n]).sum() for n in want)
+    assert den > 0
+    return np.sqrt(num / den)
+
+
+@pytest.mark.parametrize("run", sorted(ranks_mod.STEP_RUNS))
+def test_sharded_step_matches_the_single_device_step(runs, run):
+    """Three steps (two for the MoE runs) on the mesh stay within the
+    single-device step's tolerance: every rank ends with the same
+    parameters; their change is the single-device change within
+    STEPS_RTOL; the losses and the gradient norms agree (the norm shows
+    a wrong gradient scale, which AdamW's update does not)."""
+    got, _ = runs
+    p0, want, losses, norms = _single_device(run)
+    pre = f"step_{run}_param_"
+    for r in range(WORLD):
+        for n in want:
+            np.testing.assert_array_equal(got[r][pre + n], got[0][pre + n])
+        np.testing.assert_array_equal(got[r][f"step_{run}_grad_norms"],
+                                      got[0][f"step_{run}_grad_norms"])
+    assert _change_rel({n: got[0][pre + n] for n in want}, want,
+                       p0) <= STEPS_RTOL
+    np.testing.assert_allclose(got[0][f"step_{run}_losses"], losses,
+                               rtol=1e-5)
+    np.testing.assert_allclose(got[0][f"step_{run}_grad_norms"], norms,
+                               rtol=NORM_RTOL)
+    layers = set(got[0][f"step_{run}_zero1_layers"].tolist())
+    if run == "layers":
+        # ZeRO-1 on the stacked layers dim: each data rank owns a layer
+        assert layers == {f"layers.{i}.attn.{b}" for i in range(2)
+                          for b in ("bq", "bk", "bv")}
+    else:
+        assert not layers
+
+
+@pytest.mark.parametrize("run", sorted(ranks_mod.STEP_RUNS))
+def test_sharded_step_matches_jax(runs, run):
+    """The same steps against JAX's make_train_step jitted on the same
+    mesh from the same parameters (test_multidevice.py:107's recipe,
+    run): the parameters' change within STEPS_RTOL of JAX's, the losses
+    and the gradient norms within JAX_STEP_RTOL."""
+    got, want = runs
+    arch, *_, over = ranks_mod.STEP_RUNS[run][:7]
+    cfg = get_config(arch).smoke().scaled(**over)
+    pre = f"step_{run}_param_"
+    names = [k[len(pre):] for k in got[0] if k.startswith(pre)]
+    port = _jax_leaves(params_to_numpy(cfg, {
+        n: torch.from_numpy(got[0][pre + n]) for n in names}))
+    p0 = _jax_leaves(params_to_numpy(
+        cfg, ranks_mod.step_model(run).state_dict()))
+    jpre = f"jstep_{run}_param_"
+    jax_p = {k[len(jpre):]: v for k, v in want.items() if k.startswith(jpre)}
+    assert set(jax_p) == set(port)
+    assert _change_rel(port, jax_p, p0) <= STEPS_RTOL
+    for key in ("losses", "grad_norms"):
+        np.testing.assert_allclose(got[0][f"step_{run}_{key}"],
+                                   want[f"jstep_{run}_{key}"],
+                                   rtol=JAX_STEP_RTOL, err_msg=key)
+
+
+def _jax_leaves(tree):
+    return {jax.tree_util.keystr(path): np.asarray(leaf, np.float32)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+@pytest.mark.parametrize("run", sorted(ranks_mod.STEP_RUNS))
+def test_sharded_step_collectives_equal_the_dry_run(runs, run):
+    """Every rank's collectives over the run's steps, per (kind, group
+    size): calls and bytes equal the dry run's reckoning of the same
+    tiny cell, times the steps."""
+    got, _ = runs
+    arch, shape, names, _, steps, (B, S), over = ranks_mod.STEP_RUNS[run][:7]
+    row = dryrun.reckon(get_config(arch).smoke().scaled(**over),
+                        ShapeCell("tiny", S, B, "train"),
+                        MeshShape(names, shape), ranks_mod.step_rules(run),
+                        ranks_mod.step_tcfg(run))
+    want = {(k, n): (c * steps, b * steps) for k, n, c, b in row["log"]}
+    assert row["collective_bytes_per_dev"] > 0
+    for r in range(WORLD):
+        pre = f"step_{run}_log_"
+        moved = {(str(k), int(n)): (int(c), int(b)) for k, n, c, b in zip(
+            got[r][pre + "kind"], got[r][pre + "n"], got[r][pre + "calls"],
+            got[r][pre + "nbytes"])}
+        assert moved == want, (r, moved, want)
 
 
 # ----------------------------------------------------- _partition_pack --

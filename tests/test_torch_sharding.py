@@ -239,3 +239,33 @@ def test_param_specs_of_a_jax_spec_type_match():
     assert s.stacked(4) == ParamSpec((4, 2, 3), torch.float32, "zeros",
                                      ("layers", "a", None))
     assert len(tree_leaves({"x": s, "y": {"z": s}})) == 2
+
+
+@pytest.mark.parametrize("kind", ("all-gather", "reduce-scatter",
+                                  "all-reduce", "all-to-all"))
+def test_collectives_on_a_mesh_shape_take_meta_tensors_only(kind):
+    """On a MeshShape (the dry run's plan) a collective on meta tensors
+    is logged and gives the result's shape; a real tensor raises, as
+    there are no ranks to exchange with (and no values to give back)."""
+    from repro_torch.sharding import collectives as col
+    mesh = make_production_mesh(multi_pod=True)
+    call = {"all-gather": lambda x: col.gather_dim(x, mesh, "data", 1),
+            "reduce-scatter": lambda x: col.scatter_sum_dim(x, mesh,
+                                                            "data", 1),
+            "all-reduce": lambda x: col.all_reduce_sum(x, mesh,
+                                                       ("pod", "data")),
+            "all-to-all": lambda x: col.all_to_all0(x, mesh, "model")}[kind]
+    shape = {"all-gather": (16, 2, 3), "reduce-scatter": (16, 32, 3),
+             "all-reduce": (16, 2, 3), "all-to-all": (16, 2, 3)}[kind]
+    want = {"all-gather": (16, 32, 3), "reduce-scatter": (16, 2, 3)}.get(
+        kind, shape)
+    col.LOG.reset()
+    out = call(torch.empty(shape, device="meta"))
+    assert out.is_meta and tuple(out.shape) == want
+    assert col.LOG.n_calls() == {kind: 1}
+    with pytest.raises(ValueError, match="meta"):
+        call(torch.zeros(shape))
+    if kind == "reduce-scatter":
+        with pytest.raises(ValueError, match="meta"):
+            col.make_grad_allreduce(mesh)({"g": torch.zeros(32, 3)})
+    col.LOG.reset()

@@ -22,9 +22,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "src"))
 
 from repro_torch import mapreduce as mr  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import make_host_mesh  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models.moe import Experts  # noqa: E402
+from repro_torch.models.moe_ep import moe_ffn_ep  # noqa: E402
 from repro_torch.sharding import DEFAULT_RULES, hint, use_rules  # noqa: E402
 from repro_torch.sharding import collectives as col  # noqa: E402
+from repro_torch.train import OptConfig, TrainConfig  # noqa: E402
+from repro_torch.train.sharded import ShardedTraining  # noqa: E402
 
 #: seconds a collective may wait for the other ranks
 TIMEOUT_S = 120
@@ -34,6 +40,165 @@ MR_RUNS = {"data8": ((8,), ("data",), ("data",), ("data",)),
            "policy_b": ((2, 4), ("pod", "data"), ("pod", "data"),
                         ("pod", "data"))}
 MR_JOBS = ("WC", "II")
+
+
+#: expert-parallel MoE cases, JAX's test_moe_ep_matches_dense_dispatch
+#: recipe on a (2, 4) ('data', 'model') mesh (dbrx smoke with 8 experts,
+#: top-2): case -> (capacity factor, x's (B, S), x's seed); "drops" has
+#: local capacity 8 for 64 (token, choice) pairs a rank over 8 experts
+EP_CASES = {"nodrop": (8.0, (2, 32), 0), "drops": (0.5, (2, 128), 1)}
+EP_MESH = ((2, 4), ("data", "model"))
+#: sharded train step runs: name -> (arch, mesh shape, axis names, n_micro,
+#: steps, tokens (B, S), smoke overrides[, rule overrides])
+STEP_RUNS = {
+    "flat": ("qwen3-4b", (4, 2), ("data", "model"), 2, 3, (8, 32), {}),
+    "pod": ("qwen3-4b", (2, 2, 2), ("pod", "data", "model"), 2, 3,
+            (8, 32), {}),
+    "moe": ("dbrx-132b", (2, 4), ("data", "model"), 1, 2, (4, 32),
+            dict(n_experts=8, moe_topk=2, capacity_factor=8.0)),
+    # qkv biases (64,) split over 'model': ZeRO-1 goes on the stacked
+    # layers dim (2 layers over |data| 2), each data rank one layer
+    "layers": ("qwen2.5-14b", (2, 2, 2), ("pod", "data", "model"), 2, 3,
+               (8, 32), {}),
+    # the fsdp archs' rules (launch/dryrun.py::arch_rules): weights split
+    # over 'data' too, gathered with a reduce-scatter backward; the
+    # experts gathered over 'data' before the expert-parallel exchange
+    "fsdp": ("dbrx-132b", (2, 2, 2), ("pod", "data", "model"), 1, 2,
+             (4, 32), dict(n_experts=8, moe_topk=2, capacity_factor=8.0),
+             dict(embed="data", expert_in="data")),
+}
+STEP_OPT = OptConfig(lr=1e-3, warmup_steps=0)
+#: the seed of the runs' parameters (torch.Generator on the CPU)
+STEP_SEED = 0
+
+
+def ep_cfg(case, pkg_configs=None):
+    """The case's config, from ``pkg_configs.get_config`` (the JAX
+    package's, for the JAX process; the port's by default)."""
+    cf = EP_CASES[case][0]
+    return (pkg_configs.get_config if pkg_configs else get_config)(
+        "dbrx-132b").smoke().scaled(n_experts=8, moe_topk=2,
+                                    capacity_factor=cf)
+
+
+def ep_inputs(case):
+    """numpy (x, {router, wi, wo}, loss weights) of a case, in f32."""
+    _, (B, S), seed = EP_CASES[case]
+    cfg = ep_cfg(case)
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    rng = np.random.RandomState(100 + seed)
+    p = {"router": rng.randn(d, E).astype(np.float32),
+         "wi": (rng.randn(E, d, 2 * f) / np.sqrt(d)).astype(np.float32),
+         "wo": (rng.randn(E, f, d) / np.sqrt(f)).astype(np.float32)}
+    x = np.random.RandomState(seed).randn(B, S, d).astype(np.float32)
+    w = rng.randn(B, S, d).astype(np.float32)
+    return x, p, w
+
+
+def port_experts(case, requires_grad=False):
+    x, p, w = ep_inputs(case)
+    e = Experts(ep_cfg(case), torch.device("cpu"))
+    with torch.no_grad():
+        for k, v in p.items():
+            getattr(e, k).copy_(torch.from_numpy(v))
+    e.requires_grad_(requires_grad)
+    return torch.from_numpy(x), e, torch.from_numpy(w)
+
+
+def step_tokens(run):
+    arch, _, _, _, _, (B, S), over = STEP_RUNS[run][:7]
+    vocab = get_config(arch).smoke().scaled(**over).vocab
+    return np.random.RandomState(0).randint(0, vocab, (B, S)).astype(
+        np.int32)
+
+
+def step_model(run):
+    """The run's model with its seeded parameters, on the CPU."""
+    arch, *_, over = STEP_RUNS[run][:7]
+    model = build_model(get_config(arch).smoke().scaled(**over),
+                        device="cpu")
+    model.init_params(torch.Generator().manual_seed(STEP_SEED))
+    return model
+
+
+def step_tcfg(run):
+    return TrainConfig(n_micro=STEP_RUNS[run][3], opt=STEP_OPT)
+
+
+def step_rules(run):
+    over = STEP_RUNS[run][7] if len(STEP_RUNS[run]) > 7 else {}
+    return DEFAULT_RULES.updated(**over)
+
+
+def run_moe_ep(rank, out):
+    """moe_ffn_ep on each rank's row of the batch: outputs, aux and the
+    no-drop case's gradients; then MoETransformerLM under the rules."""
+    mesh = init_device_mesh("cpu", EP_MESH[0], mesh_dim_names=EP_MESH[1])
+    di = mesh.get_coordinate()[0]
+    for case in EP_CASES:
+        x, p, w = port_experts(case, requires_grad=case == "nodrop")
+        xr = x[di:di + 1].clone().requires_grad_(case == "nodrop")
+        col.LOG.reset()
+        with use_rules(mesh, DEFAULT_RULES):
+            y, aux = moe_ffn_ep(ep_cfg(case), p, xr)
+        out[f"ep_{case}_all_to_all"] = np.array(
+            col.LOG.n_calls().get("all-to-all", 0))
+        out[f"ep_{case}_out"] = y.detach().numpy()
+        out[f"ep_{case}_aux"] = aux.detach().numpy()
+        if case == "nodrop":
+            (y * w[di:di + 1]).sum().backward()
+            out["ep_grad_x"] = xr.grad.numpy()
+            for k in ("router", "wi", "wo"):
+                out[f"ep_grad_{k}"] = getattr(p, k).grad.numpy()
+    model = step_model("moe")
+    toks = torch.from_numpy(step_tokens("moe"))[2 * di:2 * di + 2]
+    with torch.no_grad():
+        out["lm_dense"] = model.logits({"tokens": toks}).numpy()
+        col.LOG.reset()
+        with use_rules(mesh, DEFAULT_RULES):
+            out["lm_ep"] = model.logits({"tokens": toks}).numpy()
+    out["lm_ep_all_to_all"] = np.array(col.LOG.n_calls().get("all-to-all",
+                                                             0))
+
+
+def run_sharded_steps(rank, out):
+    """Each STEP_RUNS run: the sharded step from the seeded parameters,
+    its losses and gradient norms, the collectives it ran (per (kind,
+    group size): calls and bytes over all its steps) and the full
+    parameters after it."""
+    for run, (_, shape, names, _, steps, *_) in STEP_RUNS.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        model = step_model(run)
+        tcfg = step_tcfg(run)
+        sharded = ShardedTraining(model, mesh, step_rules(run))
+        state = sharded.init_opt_state(tcfg.opt.state_dtype)
+        step = sharded.make_step(tcfg)
+        batch = {"tokens": torch.from_numpy(step_tokens(run))}
+        col.LOG.reset()
+        losses, norms = [], []
+        for _ in range(steps):
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+        log = col.LOG.snapshot()
+        out[f"step_{run}_losses"] = np.array(losses)
+        out[f"step_{run}_grad_norms"] = np.array(norms)
+        out[f"step_{run}_zero1_layers"] = np.array(sorted(
+            n for n, z in sharded.zero1.items()
+            if z is not None and z[0] == "layers"))
+        keys = sorted(log["calls"])
+        out[f"step_{run}_log_kind"] = np.array([k for k, _ in keys])
+        out[f"step_{run}_log_n"] = np.array([n for _, n in keys])
+        out[f"step_{run}_log_calls"] = np.array([log["calls"][k]
+                                                 for k in keys])
+        out[f"step_{run}_log_nbytes"] = np.array([log["nbytes"][k]
+                                                  for k in keys])
+        with torch.no_grad():
+            for name in sharded.plan:
+                owner, _, leaf = name.rpartition(".")
+                mod = model.get_submodule(owner) if owner else model
+                out[f"step_{run}_param_{name}"] = getattr(mod,
+                                                          leaf).numpy()
 
 
 def mr_shards():
@@ -98,6 +263,8 @@ def run(rank, out):
     host = make_host_mesh(device="cpu")
     out["host_mesh_shape"] = np.array(tuple(host.shape))
     out["host_mesh_names"] = np.array(host.mesh_dim_names)
+    run_moe_ep(rank, out)
+    run_sharded_steps(rank, out)
 
 
 def main():
