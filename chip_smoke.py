@@ -106,6 +106,18 @@ Phases, each failing the run with a non-zero exit:
                at full width, 4 layers, B 4 x 1024, n_micro 2, through the
                flash kernel, three steps bit for bit against the unsharded
                step from the same weights
+  tp         - tensor parallelism over 'model' (sharding/tp.py) as 4
+               virtual ranks in this process: qwen3-4b at full width, 4
+               layers, in f32 and in bf16, a rank's 8 heads and 2 kv heads
+               through the flash kernel (attn_fwd_tc in bf16); the forward
+               (B 4 x 1024), three train steps and a 512-token prefill with
+               32 teacher-forced decode steps (the cache's 544 slots split
+               136 a rank, the ranks' decode partials merged) against the
+               unsharded model from the same weights (the bf16 steps
+               also beside the n_micro control, the ranks' sums in f32 and
+               a planted fault the gate must reject); the two decode steps
+               against their plain versions; the launches by shape, the
+               per-rank calls timed and held to their plain versions
   dryrun     - python -m repro_torch.launch.dryrun --all --both-meshes in a
                CPU process started before phase 3 on a core of its own
                (this process keeps the others), read after phase 9: 80
@@ -167,8 +179,11 @@ from repro_torch.obs import TelemetryConfig  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
 from repro_torch.models.moe import Experts, moe_ffn  # noqa: E402
 from repro_torch.models.moe_ep import moe_ffn_ep_virtual  # noqa: E402
+from repro_torch.models.transformer import (Attention,  # noqa: E402
+                                            tp_argmax)
 from repro_torch.sharding import DEFAULT_RULES  # noqa: E402
 from repro_torch.sharding import collectives as col  # noqa: E402
+from repro_torch.sharding import tp as tpm  # noqa: E402
 from repro_torch.sim import experiment, golden  # noqa: E402
 from repro_torch.sim import workloads as wl  # noqa: E402
 from repro_torch.sim.cluster_sim import SimConfig, Simulator  # noqa: E402
@@ -180,6 +195,7 @@ from repro_torch.sweep import lockstep  # noqa: E402
 from repro_torch.sweep import vmap_fill as vf  # noqa: E402
 from repro_torch.train import (OptConfig, TrainConfig, adamw_init,  # noqa: E402
                                init_train_state, make_train_step)
+from repro_torch.train.step import accumulate_grads  # noqa: E402
 from repro_torch.train.checkpoint import AsyncCheckpointer  # noqa: E402
 from repro_torch.train.sharded import ShardedTraining  # noqa: E402
 from repro_torch.train.checkpoint import restore as ckpt_restore  # noqa: E402
@@ -1486,6 +1502,18 @@ def flash_cases():
         ("whisper_cross_decode", 8, 1, WE, 16, 16, 64, False, 0, zeros(1),
          zeros(WE), bf16, None),
     ]
+    # the tp phase's per-rank shapes (qwen3-4b, TP_RANKS 'model' ranks:
+    # 8 q heads, 2 kv heads a rank): its forward, a training microbatch
+    # and the serving prefill, on the tensor cores in bf16 and the simt
+    # kernel in f32, as that phase runs them
+    qwen = get_config(SHARDED_ARCH)
+    TH, TG = qwen.n_heads // TP_RANKS, qwen.n_kv_heads // TP_RANKS
+    TPB, TPS = TP_SHAPE
+    for tag, B, S in (("tp_forward", TPB, TPS),
+                      ("tp_train", TPB // SHARDED_TCFG.n_micro, TPS),
+                      ("tp_prefill", *TP_SERVE[:2])):
+        cases += [(tag, B, S, S, TH, TG, qwen.hdim, True, 0, ar(S), ar(S),
+                   dt, None) for dt in (bf16, f32)]
     # the simt kernel (the first design) at the bf16 serving shapes, as
     # phase 6 times it
     cases += [c[:-1] + ("simt",) for c in cases
@@ -2382,6 +2410,9 @@ def reset_counts():
         fn.launches = 0
         for name in fn.launches_by_variant:
             fn.launches_by_variant[name] = 0
+    for name in fa.flash_attention.launches_by_step:
+        fa.flash_attention.launches_by_step[name] = 0
+    fa.flash_attention.launches_by_shape.clear()
 
 
 def timed_step(step, state, batch):
@@ -2850,6 +2881,533 @@ def phase_train_sharded():
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ tp --
+#: tensor parallelism over 'model' (sharding/tp.py) as TP_RANKS virtual
+#: ranks in this process (tp.place_virtual: each rank's pieces are views
+#: of the whole leaves, a sum over the ranks the sum of their parts in
+#: rank order): qwen3-4b at SHARDED_CUT, a rank's 32 / 4 = 8 heads and
+#: 8 / 4 = 2 kv heads through the flash kernel (attn_fwd_tc in bf16)
+TP_RANKS = 4
+TP_SHAPE = (4, 1024)
+#: serving: (requests, prompt length, decode steps), teacher-forced with
+#: the unsharded run's greedy tokens; the cache's TP_SLOTS slots split
+#: 136 a rank, not a multiple of the kernels' 64-key tile
+TP_SERVE = (8, 512, 32)
+TP_SLOTS = 544
+#: each run in both types. In f32 (TF32 off) the ranks' sums differ from
+#: the unsharded model's by f32 order alone, and the run is held to the
+#: f32 full-model tolerances: the logits within WIRING_ATOL, the
+#: training's parameters and gradient norms within SHARDED_RTOL and
+#: SHARDED_NORM_RTOL. In bf16 each rank's part of a row-parallel product
+#: (and of a column-parallel input's gradient) rounds to bf16 before the
+#: ranks' sum, where the whole product rounds once, and those tolerances,
+#: and TOL's elementwise one on the logits, sit below what that gives: the
+#: unsharded bf16 steps at n_micro 1 against n_micro 2 (one gradient sum
+#: in another f32 order) already leave SHARDED_RTOL (the train line's
+#: control_* readings: AdamW's first update is lr * sign(g), and the
+#: elements whose gradient is near 0 flip). The bf16 run is held as the
+#: repo's bf16 model checks are: the logits within WIRING_BF16_RTOL as
+#: ||tp - ref|| / ||ref|| over the vocab's columns, the first step's
+#: loss within TP_BF16_LOSS_RTOL and its gradients within GRAD_RTOL; its
+#: 3 steps' parameter change and gradient norms within TP_BF16_PARAM_RTOL
+#: and TP_BF16_NORM_RTOL. Beside it, from the same weights, the train line
+#: reads the control, the ranks' sums taken in f32 (SumF32TP) and a
+#: planted fault (DroppedWoTP), which the gate must reject. Greedy tokens
+#: must be equal in both wherever the unsharded top-2 margin exceeds TOL
+TP_DTYPES = ("float32", "bfloat16")
+#: the bf16 first step's loss: train_sharded's loss tolerance
+TP_BF16_LOSS_RTOL = 1e-3
+#: the bf16 run's 3 steps: the parameters' change (||tp - ref|| over the
+#: unsharded change) and the gradient norms, each bound between the
+#: sound run's reading and the planted fault's (NVIDIA H100 80GB HBM3:
+#: 0.066 and 4.9e-3 sound, 0.063 and 5.7e-3 with the sums in f32, 1.13
+#: and 0.90 with the fault; the control 0.013 and 1.6e-4)
+TP_BF16_PARAM_RTOL = 0.2
+TP_BF16_NORM_RTOL = 0.05
+
+
+def flash_counts():
+    """(launches, by variant or step, by shape) of the flash wrappers
+    since the last reset_counts."""
+    fn = fa.flash_attention
+    return (fn.launches, {k: v for k, v in (*fn.launches_by_variant.items(),
+                                            *fn.launches_by_step.items())
+                          if v},
+            {"/".join(map(str, k)): v
+             for k, v in sorted(fn.launches_by_shape.items())})
+
+
+class _CopyF32(torch.autograd.Function):
+    """x as M rank inputs, the ranks' gradients summed in f32 in rank
+    order and rounded once."""
+
+    @staticmethod
+    def forward(ctx, x, M):
+        return tuple(x.clone() for _ in range(M))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        got = [g for g in grads if g is not None]
+        out = got[0].float()
+        for g in got[1:]:
+            out = out + g.float()
+        return out.to(got[0].dtype), None
+
+
+class SumF32TP(tpm.VirtualTP):
+    """The bf16 run's diagnostic: the virtual ranks with every sum over
+    the ranks (the row-parallel outputs forward, the column-parallel
+    inputs' gradients backward) taken in f32 and rounded once, each
+    rank's part still rounded to bf16 as its product gives it."""
+
+    def copy(self, x):
+        return list(_CopyF32.apply(x, self.M))
+
+    def reduce(self, xs):
+        return super().reduce([x.float() for x in xs]).to(xs[0].dtype)
+
+
+class DroppedWoTP(tpm.VirtualTP):
+    """A planted fault the bf16 gate must reject: the last rank's part of
+    every attention's row-parallel output dropped."""
+
+    def pieces(self, module, leaf):
+        out = super().pieces(module, leaf)
+        if leaf == "wo" and isinstance(module, Attention):
+            out[-1] = torch.zeros_like(out[-1])
+        return out
+
+
+def tp_model(cfg, p0, group=None):
+    """The model from p0, unsharded (``group`` None) or as TP_RANKS
+    virtual ranks of ``group`` (a ``VirtualTP`` class)."""
+    model = build_model(cfg, device=DEV)
+    model.load_state_dict(p0)
+    if group is not None:
+        check(tpm.place_virtual(model, TP_RANKS) != {},
+              "tp: no leaf went tensor-parallel")
+        model.tp = group(TP_RANKS)
+    return model
+
+
+def rel_norm(out, ref):
+    return float(torch.linalg.vector_norm((out.float() - ref.float()))
+                 / torch.linalg.vector_norm(ref.float()))
+
+
+def logits_close(out, ref, cfg):
+    """Over the vocab's columns (the padding's -1e9 left out): (max abs
+    error, relative norm error, whether the one of cfg's type holds)."""
+    out, ref = out[..., :cfg.vocab], ref[..., :cfg.vocab]
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = rel_norm(out, ref)
+    return err, rel, (err <= WIRING_ATOL if cfg.tdtype == torch.float32
+                      else rel <= WIRING_BF16_RTOL)
+
+
+def tol_fields(cfg):
+    f32 = cfg.tdtype == torch.float32
+    return dict(atol=WIRING_ATOL if f32 else None,
+                rel_tol=None if f32 else WIRING_BF16_RTOL)
+
+
+def tp_steps(cfg, p0, toks, group, tcfg=SHARDED_TCFG):
+    """The first step's gradients, then SHARDED_STEPS steps of
+    make_train_step from p0, on the unsharded model (``group`` None) or
+    on TP_RANKS virtual ranks of ``group``: (params by name, losses,
+    gradient norms, step seconds, flash counts of the steps, first
+    gradients)."""
+    model = tp_model(cfg, p0, group)
+    params = dict(model.named_parameters())
+    _, _, grads = accumulate_grads(model, params, tcfg, {"tokens": toks})
+    grads = {n: g.detach().float() for n, g in grads.items()}
+    state = adamw_init(params)
+    step = make_train_step(model, tcfg)
+    reset_counts()
+    losses, norms, secs = [], [], []
+    for _ in range(SHARDED_STEPS):
+        state, met, dt = timed_step(step, state, {"tokens": toks})
+        losses.append(met["loss"].float().cpu())
+        norms.append(met["grad_norm"].float().cpu())
+        secs.append(dt)
+    counts = flash_counts()
+    out = {n: p.detach().clone() for n, p in params.items()}
+    del model, state, step, params
+    torch.cuda.empty_cache()
+    return out, losses, norms, secs, counts, grads
+
+
+def change_rel(got, want, p0):
+    """||got - want|| / ||want - p0|| over every parameter."""
+    num = sum(float(torch.sum(torch.square(got[n].float()
+                                           - want[n].float())))
+              for n in want)
+    den = sum(float(torch.sum(torch.square(want[n].float()
+                                           - p0[n].float())))
+              for n in want)
+    return math.sqrt(num / den)
+
+
+def tp_forward(cfg, p0, toks, tally):
+    dt = cfg.tdtype
+    L, M, D = cfg.n_layers, TP_RANKS, cfg.hdim
+    H, G = cfg.n_heads // M, cfg.n_kv_heads // M
+    with torch.no_grad():
+        ref = tp_model(cfg, p0).forward({"tokens": toks})
+        model = tp_model(cfg, p0, tpm.VirtualTP)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = model.forward({"tokens": toks})
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = flash_counts()
+    tally("forward", counts)
+    err, rel, ok = logits_close(got, ref, cfg)
+    B, S = TP_SHAPE
+    want = {f"{fa.choose_variant(dt, S)}/{B}/{S}/{S}/{H}/{G}/{D}": L * M}
+    emit(phase="tp", check="forward", arch=SHARDED_ARCH, ranks=M,
+         n_layers=L, batch=B, seq_len=S, dtype=cfg.dtype, rank_heads=H,
+         rank_kv_heads=G, max_abs_err=err, rel_err=rel, **tol_fields(cfg),
+         within=ok, seconds=secs, launches=counts[0],
+         launches_by_shape=counts[2], expected_launches_by_shape=want,
+         reduced=reduced(SHARDED_ARCH, cfg))
+    check(ok, f"tp forward ({cfg.dtype}): logits differ from the "
+              f"unsharded model's by {err} (relative {rel})")
+    check(counts[2] == want, f"tp forward: flash launches {counts[2]}, "
+                             f"expected {want}")
+
+
+def norm_rel(got, want):
+    """The largest relative error of a run's gradient norms."""
+    return max(abs(float(a) / float(b) - 1) for a, b in zip(got, want))
+
+
+def tp_train(cfg, p0, toks, tally):
+    dt = cfg.tdtype
+    L, M, D = cfg.n_layers, TP_RANKS, cfg.hdim
+    H, G = cfg.n_heads // M, cfg.n_kv_heads // M
+    B, S = TP_SHAPE
+    want, want_l, want_g, want_s, want_c, want_gr = tp_steps(cfg, p0, toks,
+                                                             None)
+    got, got_l, got_g, got_s, got_c, got_gr = tp_steps(cfg, p0, toks,
+                                                       tpm.VirtualTP)
+    tally("train", got_c)
+
+    def grad_rel_err(grads):
+        return math.sqrt(
+            sum(float(torch.sum(torch.square(grads[n] - want_gr[n])))
+                for n in want_gr)
+            / sum(float(torch.sum(torch.square(want_gr[n])))
+                  for n in want_gr))
+
+    rel = change_rel(got, want, p0)
+    grad_rel = grad_rel_err(got_gr)
+    norm_err = norm_rel(got_g, want_g)
+    loss_err = abs(float(got_l[0]) / float(want_l[0]) - 1)
+    extra = {}
+    if dt == torch.float32:
+        ok = rel <= SHARDED_RTOL and norm_err <= SHARDED_NORM_RTOL
+    else:
+        def holds(param_err, grad_norm_err):
+            return (param_err <= TP_BF16_PARAM_RTOL
+                    and grad_norm_err <= TP_BF16_NORM_RTOL)
+
+        ok = (loss_err <= TP_BF16_LOSS_RTOL
+              and grad_rel <= GRAD_RTOL[torch.bfloat16]
+              and holds(rel, norm_err))
+        # beside it, from the same weights and batch: the control (the
+        # unsharded steps at n_micro 1 against SHARDED_TCFG's 2), the
+        # diagnostic (the ranks' sums in f32) and the planted fault
+        one = dataclasses.replace(SHARDED_TCFG, n_micro=1)
+        for name, group, tcfg in (("control", None, one),
+                                  ("sum_f32", SumF32TP, SHARDED_TCFG),
+                                  ("fault", DroppedWoTP, SHARDED_TCFG)):
+            x_p, _, x_g, _, _, x_gr = tp_steps(cfg, p0, toks, group, tcfg)
+            extra[f"{name}_param_rel_err"] = change_rel(x_p, want, p0)
+            extra[f"{name}_grad_norm_err"] = norm_rel(x_g, want_g)
+            extra[f"{name}_grad_rel_err"] = grad_rel_err(x_gr)
+            del x_p, x_gr
+            torch.cuda.empty_cache()
+        extra["fault_rejected"] = not holds(extra["fault_param_rel_err"],
+                                            extra["fault_grad_norm_err"])
+    f32 = dt == torch.float32
+    mb = B // SHARDED_TCFG.n_micro
+    # a layer's forward and its remat recompute, each rank, each
+    # microbatch, each step
+    shapes = {f"{fa.choose_variant(dt, S)}/{mb}/{S}/{S}/{H}/{G}/{D}":
+              2 * L * M * SHARDED_TCFG.n_micro * SHARDED_STEPS}
+    emit(phase="tp", check="train", arch=SHARDED_ARCH, ranks=M, n_layers=L,
+         batch=B, seq_len=S, n_micro=SHARDED_TCFG.n_micro,
+         steps=SHARDED_STEPS, dtype=cfg.dtype, leaves=len(want),
+         param_rel_err=rel,
+         param_rtol=SHARDED_RTOL if f32 else TP_BF16_PARAM_RTOL,
+         grad_norm_err=norm_err,
+         norm_rtol=SHARDED_NORM_RTOL if f32 else TP_BF16_NORM_RTOL,
+         grad_rel_err=grad_rel, grad_rtol=GRAD_RTOL[torch.bfloat16],
+         first_loss_err=loss_err, loss_rtol=TP_BF16_LOSS_RTOL,
+         losses=[float(v) for v in got_l],
+         unsharded_losses=[float(v) for v in want_l],
+         grad_norms=[float(v) for v in got_g],
+         unsharded_grad_norms=[float(v) for v in want_g], **extra,
+         within=ok, step_seconds=got_s, unsharded_step_seconds=want_s,
+         launches=got_c[0], launches_by_shape=got_c[2],
+         expected_launches_by_shape=shapes, unsharded_launches=want_c[0],
+         reduced=reduced(SHARDED_ARCH, cfg))
+    check(ok, f"tp train ({cfg.dtype}): parameters {rel}, gradient norms "
+              f"{norm_err}, first gradients {grad_rel}, losses {loss_err} "
+              f"off the unsharded steps'")
+    check(got_c[2] == shapes, f"tp train: flash launches {got_c[2]}, "
+                              f"expected {shapes}")
+    check(f32 or extra["fault_rejected"],
+          f"tp train (bf16): the gate passes a planted fault (the last "
+          f"rank's attention output dropped): parameters "
+          f"{extra.get('fault_param_rel_err')}, gradient norms "
+          f"{extra.get('fault_grad_norm_err')}")
+    del got, want, got_gr, want_gr
+    torch.cuda.empty_cache()
+
+
+def tp_decode(cfg, p0, ptoks, tally):
+    """The unsharded run's prefill and greedy decode, then the same
+    prompt and tokens through the virtual ranks' split cache."""
+    dt = cfg.tdtype
+    L, M, D = cfg.n_layers, TP_RANKS, cfg.hdim
+    H, G = cfg.n_heads // M, cfg.n_kv_heads // M
+    N, P, GEN = TP_SERVE
+    atol, rtol = TOL[dt]
+    with torch.no_grad():
+        model = tp_model(cfg, p0)
+        pre, cache = model.prefill({"tokens": ptoks}, cache_len=TP_SLOTS)
+        feed = [pre[:, -1:].argmax(dim=-1)]
+        ref_steps = []
+        for t in range(P, P + GEN):
+            lg, cache = model.decode_step(cache, feed[-1], t)
+            ref_steps.append(lg[:, 0])
+            feed.append(lg[:, -1:].argmax(dim=-1))
+        del model, cache
+        model = tp_model(cfg, p0, tpm.VirtualTP)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts, cache = model.prefill_split(model.embed_tokens(ptoks),
+                                           TP_SLOTS)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        slots = [c.k.shape[2] for c in cache.parts]
+        pre_err, pre_rel, pre_ok = logits_close(torch.cat(parts, dim=-1),
+                                                pre, cfg)
+        del pre, parts
+        errs, rels, oks, equal, decided, step_s = [], [], [], [], [], []
+        for i, t in enumerate(range(P, P + GEN)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            parts, cache = model.decode_split(cache, feed[i], t)
+            tok = tp_argmax(model.tp, [x[:, -1:] for x in parts])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            lg, ref = torch.cat(parts, dim=-1)[:, 0], ref_steps[i]
+            err, rel, ok = logits_close(lg, ref, cfg)
+            top = ref.float().topk(2, dim=-1).values
+            sure = (top[:, 0] - top[:, 1]) > atol + rtol * top[:, 0].abs()
+            errs.append(err)
+            rels.append(rel)
+            oks.append(ok)
+            decided.append(int(sure.sum()))
+            equal.append(bool((tok[:, 0] == feed[i + 1][:, 0])[sure].all()))
+    counts = flash_counts()
+    tally("serve", counts)
+    C = TP_SLOTS // M
+    want = {f"{fa.choose_variant(dt, P)}/{N}/{P}/{P}/{H}/{G}/{D}": L * M,
+            f"partials/{N}/1/{C}/{cfg.n_heads}/{cfg.n_kv_heads}/{D}":
+            L * M * GEN,
+            f"merge/{M}/{N * cfg.n_heads}/{D}": L * GEN}
+    emit(phase="tp", check="decode", arch=SHARDED_ARCH, ranks=M, n_layers=L,
+         requests=N, prompt_len=P, steps=GEN, slots=TP_SLOTS,
+         rank_slots=slots, dtype=cfg.dtype, prefill_max_abs_err=pre_err,
+         prefill_rel_err=pre_rel, prefill_within=pre_ok,
+         max_abs_err=max(errs), max_rel_err=max(rels), step_within=oks,
+         tokens_equal=equal, decided_rows=decided,
+         margin_tol=[atol, rtol], **tol_fields(cfg),
+         prefill_seconds=pre_s, step_seconds=step_s, launches=counts[0],
+         launches_by_shape=counts[2], expected_launches_by_shape=want,
+         reduced=reduced(SHARDED_ARCH, cfg) + ["teacher-forced tokens"])
+    check(slots == [C] * M, f"tp decode: rank slots {slots}")
+    check(pre_ok and all(oks), f"tp decode ({cfg.dtype}): logits differ "
+                               f"from the unsharded run's by {max(errs)} "
+                               f"(relative {max(rels)}; prefill {pre_err})")
+    check(all(equal), f"tp decode: greedy tokens differ where the margin "
+                      f"is sure: {equal}")
+    check(counts[2] == want, f"tp decode: flash launches {counts[2]}, "
+                             f"expected {want}")
+
+
+def tp_kernel_checks(cfg):
+    """flash_decode_partials and flash_decode_merge on the card against
+    their plain versions at a decode rank's shape (TP_SLOTS / TP_RANKS
+    slots, every head), the cache full and a ring half empty, at n_split
+    1, the chosen one and 3; the merge of TP_RANKS partials."""
+    gen = torch.Generator(device=DEV).manual_seed(58)
+    N, C = TP_SERVE[0], TP_SLOTS // TP_RANKS
+    H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    for dt in (torch.bfloat16, torch.float32):
+        q = rand((N, 1, H, D), dt, gen)
+        k, v = rand((N, C, G, D), dt, gen), rand((N, C, G, D), dt, gen)
+        for name, kpos in (("full", ar(C, 300)),
+                           ("ring", torch.where(ar(C) % 2 == 0, ar(C, 300),
+                                                -1).to(torch.int32))):
+            qpos = ar(1, 300 + C)
+            ref = fa.flash_decode_partials_ref(q, k, v, qpos=qpos, kpos=kpos)
+            for n_split in (1, None, 3):
+                out = fa.flash_decode_partials(q, k, v, qpos=qpos, kpos=kpos,
+                                               n_split=n_split)
+                atol, rtol = TOL[torch.float32]
+                err, ok = within(out, ref, atol, rtol)
+                tag = f"tp_partials_{name}/{str(dt).split('.')[-1]}/{n_split}"
+                emit(phase="tp", check="kernel", kernel="flash_attention",
+                     case=tag, step="partials", n_split=n_split,
+                     shape=[N, 1, C, H, G, D], max_abs_err=err, atol=atol,
+                     rtol=rtol)
+                check(ok and bool(torch.isfinite(out).all()),
+                      f"flash_decode_partials disagrees with its plain "
+                      f"version: {tag}")
+        part = torch.stack([fa.flash_decode_partials_ref(
+            q, rand((N, C, G, D), dt, gen), rand((N, C, G, D), dt, gen),
+            qpos=ar(1, 300 + C), kpos=ar(C, 300)) for _ in range(TP_RANKS)])
+        out = fa.flash_decode_merge(part, dt)
+        ref = fa.flash_decode_merge_ref(part, dt)
+        atol, rtol = TOL[dt]
+        err, ok = within(out, ref, atol, rtol)
+        tag = f"tp_merge/{str(dt).split('.')[-1]}"
+        emit(phase="tp", check="kernel", kernel="flash_attention", case=tag,
+             step="merge", shape=list(part.shape), max_abs_err=err,
+             atol=atol, rtol=rtol)
+        check(ok and out.dtype == dt, f"flash_decode_merge disagrees with "
+                                      f"its plain version: {tag}")
+
+
+def tp_times(cfg, P):
+    """The per-rank flash calls, timed as phase 6 times the serving shapes
+    (eager calls, CUDA events): attn_fwd_tc at the forward's rank shape,
+    and one decode step's attention, TP_RANKS ranks' partials over their
+    slots and the merge, beside the plain versions and SDPA (over the
+    whole cache, for the decode)."""
+    gen = torch.Generator(device=DEV).manual_seed(57)
+    dt = torch.bfloat16
+    H, G, D = cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS, cfg.hdim
+    B, S = TP_SHAPE
+    q, k, v = (rand((B, S, n, D), dt, gen) for n in (H, G, G))
+    kw = dict(causal=True, qpos=ar(S), kpos=ar(S))
+    sdpa = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out = {}
+    got = fa.flash_attention(q, k, v, **kw)
+    ref = fa.flash_attention_ref(q, k, v, **kw)
+    atol, rtol = TOL[dt]
+    err, ok = within(got, ref, atol, rtol)
+    check(ok, f"tp times: attn_fwd_tc at {[B, S, H, G, D]} disagrees with "
+              f"its plain version by {err}")
+    del got, ref
+    ms, host_us = time_ms(lambda: fa.flash_attention(q, k, v, **kw), 20)
+    plain_ms, _ = time_ms(lambda: fa.flash_attention_ref(q, k, v, **kw), 5)
+    lib_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        *sdpa, is_causal=True, enable_gqa=True), 20)
+    nbytes, flops = flash_work(B, H, G, D, ar(S), ar(S), True, 0, 2)
+    b_ms, b_by = least_ms(nbytes, flops)
+    out["prefill_rank"] = dict(
+        shape=[B, S, S, H, G, D], variant="tc", ms=ms, host_us=host_us,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        bytes=nbytes, flops=flops, max_abs_err=err, atol=atol, rtol=rtol)
+    N = TP_SERVE[0]
+    C = TP_SLOTS // TP_RANKS
+    H, G = cfg.n_heads, cfg.n_kv_heads
+    last = P + TP_SERVE[2] - 1
+    q = rand((N, 1, H, D), dt, gen)
+    ks, vs = (rand((N, TP_SLOTS, G, D), dt, gen) for _ in range(2))
+    kpos, qpos = ar(TP_SLOTS), ar(1, last)
+    sl = [slice(r * C, (r + 1) * C) for r in range(TP_RANKS)]
+
+    rank_kv = [(ks[:, s].contiguous(), vs[:, s].contiguous()) for s in sl]
+
+    def step(partials, merge):
+        return merge(torch.stack([partials(q, a, b, causal=True, qpos=qpos,
+                                           kpos=kpos[s])
+                                  for (a, b), s in zip(rank_kv, sl)]), dt)
+
+    got = step(fa.flash_decode_partials, fa.flash_decode_merge)
+    ref = step(fa.flash_decode_partials_ref, fa.flash_decode_merge_ref)
+    err, ok = within(got, ref, atol, rtol)
+    check(ok, f"tp times: the decode step's partials and merge over "
+              f"{TP_RANKS} ranks disagree with their plain versions by "
+              f"{err}")
+    del got, ref
+    ms, host_us = time_ms(lambda: step(fa.flash_decode_partials,
+                                       fa.flash_decode_merge), 200)
+    plain_ms, _ = time_ms(lambda: step(fa.flash_decode_partials_ref,
+                                       fa.flash_decode_merge_ref), 20)
+    full = tuple(t.transpose(1, 2).contiguous() for t in (q, ks, vs))
+    lib_ms, _ = time_ms(lambda: F.scaled_dot_product_attention(
+        *full, enable_gqa=True), 200)
+    nbytes, flops = flash_work(N, H, G, D, qpos, kpos, True, 0, 2)
+    nbytes += TP_RANKS * N * H * (2 + D) * 4 * 2   # partials out and in
+    b_ms, b_by = least_ms(nbytes, flops)
+    out["decode_step_ranks"] = dict(
+        shape=[N, 1, TP_SLOTS, H, G, D], ranks=TP_RANKS, slots_a_rank=C,
+        variant="partials+merge", ms=ms, host_us=host_us,
+        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        bytes=nbytes, flops=flops, max_abs_err=err, atol=atol, rtol=rtol,
+        library="SDPA over the whole cache (the ranks' merged function)")
+    return out
+
+
+def phase_tp():
+    """Forward, training and teacher-forced decode of TP_RANKS virtual
+    'model' ranks against the unsharded model from the same weights, in
+    each of TP_DTYPES; the two-step decode kernel against its plain
+    versions; the per-rank calls timed. Returns the flash launches of the
+    tensor-parallel runs (the main path), by variant and by shape, and
+    the times."""
+    t_start = time.perf_counter()
+    cfg = get_config(SHARDED_ARCH).scaled(**SHARDED_CUT)
+    model = build_model(cfg, device=DEV)
+    model.init_params(torch.Generator(device=DEV).manual_seed(51))
+    p0 = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    del model
+    gen = torch.Generator(device=DEV).manual_seed(52)
+    toks = torch.randint(0, cfg.vocab, TP_SHAPE, device=DEV, generator=gen)
+    N, P, _ = TP_SERVE
+    ptoks = torch.randint(0, cfg.vocab, (N, P), device=DEV, generator=gen)
+    torch.cuda.reset_peak_memory_stats()
+    launches, by_run, by_variant, by_shape = 0, {}, {}, {}
+
+    def tally(run, counts):
+        nonlocal launches
+        launches += counts[0]
+        run = f"tp:{run}:{SHARDED_ARCH}"
+        by_run[run] = by_run.get(run, 0) + counts[0]
+        for key, dst in ((1, by_variant), (2, by_shape)):
+            for k, v in counts[key].items():
+                dst[k] = dst.get(k, 0) + v
+
+    for dtype in TP_DTYPES:
+        c = cfg.scaled(dtype=dtype)
+        p = {n: t.to(c.tdtype) for n, t in p0.items()}
+        tp_forward(c, p, toks, tally)
+        tp_train(c, p, toks, tally)
+        tp_decode(c, p, ptoks, tally)
+        del p
+        torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tp_kernel_checks(cfg)
+    times = tp_times(cfg, P)
+    for name, row in times.items():
+        emit(phase="tp", check="times", at=name, **row)
+    emit(phase="tp", check="summary", seconds=time.perf_counter() - t_start,
+         peak_mem_gb=peak, launches=launches, launches_by_run=by_run,
+         launches_by_variant=by_variant, launches_by_shape=by_shape)
+    return {"launches": launches, "by_run": by_run,
+            "by_variant": by_variant, "by_shape": by_shape, "times": times}
+
+
 # -------------------------------------------------------------- dryrun --
 DRYRUN_ROWS, DRYRUN_SKIPS = 80, 16
 DRYRUN_LIMIT_S = 600
@@ -2941,7 +3499,8 @@ def kernel_entry(kernel, source, replaces, launches, max_abs_err, per):
     plain_ms and library_ms are eager calls timed by CUDA events, as in
     every PR; device_ms is the kernel's time in CUDA graphs; simt_* are
     the first design's. ``launches`` holds each main-path run's count:
-    the serving runs by arch, the training runs as "train:<arch>"."""
+    the serving runs by arch, the training runs as "train:<arch>", the
+    tp phase's as "tp:<forward, train or serve>:<arch>"."""
     rows = {name: row for (k, name), row in per.items() if k == kernel}
 
     def total(key):
@@ -3010,6 +3569,7 @@ def main() -> None:
             "serve": phase_serve, "times": phase_times, "grad": phase_grad,
             "train_wiring": phase_train_wiring, "train": phase_train,
             "moe_ep": phase_moe_ep, "train_sharded": phase_train_sharded,
+            "tp": phase_tp,
             "dryrun": lambda: phase_dryrun(done.pop("dryrun_start"))}
     try:
         for name, run in runs.items():
@@ -3025,14 +3585,20 @@ def main() -> None:
             proc.wait()
             log.close()
             pin_threads(cores)
-    # the sharded step's flash launches beside the training runs'
+    # the sharded step's flash launches beside the training runs', the
+    # tensor-parallel runs' (forward, train, serve) beside the serving
+    # runs'
     done["train"][0][f"sharded:{SHARDED_ARCH}"] = {
         "flash_attention": done["train_sharded"], "gla_scan": 0}
+    for run, n in done["tp"]["by_run"].items():
+        done["serve"][0][run] = {"flash_attention": n, "gla_scan": 0}
 
     print(smi, flush=True)
-    emit(kernels=kernels_line(done["kernel"], *done["serve"], done["times"],
-                              *done["train"])
-         + [fill_entry(done["fill"], *done["lockstep"])])
+    kernels = kernels_line(done["kernel"], *done["serve"], done["times"],
+                           *done["train"])
+    kernels[0]["launches_tp"] = {k: done["tp"][k] for k in (
+        "by_variant", "by_shape", "times")}
+    emit(kernels=kernels + [fill_entry(done["fill"], *done["lockstep"])])
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),
                           "count": torch.cuda.device_count()})

@@ -46,7 +46,10 @@
 //   writes o. Both launch inside one call. A block loads every tile of its
 //   range with no scan first (a decode cache is full or nearly so; the
 //   per-key mask keeps empty slots out), its first two tiles before
-//   anything else.
+//   anything else. For a cache split over ranks the two kernels also run
+//   apart (repro_flash_decode_partials: the split kernel and a merge into
+//   one unnormalised partial a row; repro_flash_decode_merge: the merge of
+//   the ranks' packed partials), the exchange between them the caller's.
 // * attn_fwd (f32, Sq > 1; and any case on request): the first design, f32
 //   on CUDA cores, kept because f32 on the tensor cores would be TF32. Grid
 //   (ceil(Sq*H/G / 64), G, B); 8 warps x 8 query rows; per kv tile of 32
@@ -1098,33 +1101,51 @@ attn_decode_split(const T* __restrict__ q, const T* __restrict__ k,
 // One warp a row: o = sum_s acc_s e^(m_s - M) / max(sum_s l_s e^(m_s - M),
 // 1e-30), M = max_s m_s. A split with no valid key has m = NEG_INF, l = 0,
 // acc = 0 and adds nothing; a row with none in any split comes out 0.
-template <typename T, int D>
+// Partial s of a row is read at m[row * rs + s * ss], l likewise and
+// acc[row * ars + s * ass + d]: the split kernel's scratch, or the packed
+// partials of repro_flash_decode_merge. kPartial: the row's merged partial
+// (M, L, sum_s acc_s e^(m_s - M)) is written, unnormalised, to out_part
+// as a packed row of 2 + D floats instead of o.
+template <typename T, int D, bool kPartial>
 __global__ void __launch_bounds__(128)
-attn_decode_merge(const float* __restrict__ part, T* __restrict__ o,
-                  int rows, int n_split) {
+attn_decode_merge(const float* __restrict__ m, const float* __restrict__ l,
+                  const float* __restrict__ a, long long rs, long long ss,
+                  long long ars, long long ass, T* __restrict__ o,
+                  float* __restrict__ out_part, int rows, int n_split) {
   constexpr int DPL = D >= 32 ? D / 32 : 1;
   // launched early (programmatic dependent launch): wait until the split
-  // grid has finished and its partials are visible
+  // grid has finished and its partials are visible; a plain launch has
+  // nothing to wait for
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * 4 + (threadIdx.x >> 5);
   if (row >= rows) return;
-  const size_t nps = (size_t)rows * n_split;
-  const float* pm = part + (size_t)row * n_split;
-  const float* pl = pm + nps;
-  const float* pa = part + 2 * nps + (size_t)row * n_split * D;
+  const float* pm = m + (size_t)row * rs;
+  const float* pl = l + (size_t)row * rs;
+  const float* pa = a + (size_t)row * ars;
   float M = kNegInf;
-  for (int s = 0; s < n_split; ++s) M = fmaxf(M, pm[s]);
+  for (int s = 0; s < n_split; ++s) M = fmaxf(M, pm[(size_t)s * ss]);
   float L = 0.f, acc[DPL];
 #pragma unroll
   for (int e = 0; e < DPL; ++e) acc[e] = 0.f;
   for (int s = 0; s < n_split; ++s) {
-    const float w = expf(pm[s] - M);
-    L = fmaf(pl[s], w, L);
+    const float w = expf(pm[(size_t)s * ss] - M);
+    L = fmaf(pl[(size_t)s * ss], w, L);
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
       if (D >= 32 || lane * DPL + e < D)
-        acc[e] = fmaf(pa[(size_t)s * D + lane * DPL + e], w, acc[e]);
+        acc[e] = fmaf(pa[(size_t)s * ass + lane * DPL + e], w, acc[e]);
+  }
+  if (kPartial) {
+    float* out = out_part + (size_t)row * (2 + D);
+    if (lane == 0) {
+      out[0] = M;
+      out[1] = L;
+    }
+#pragma unroll
+    for (int e = 0; e < DPL; ++e)
+      if (D >= 32 || lane * DPL + e < D) out[2 + lane * DPL + e] = acc[e];
+    return;
   }
   const float den = fmaxf(L, 1e-30f);
 #pragma unroll
@@ -1138,7 +1159,8 @@ cudaError_t launch_split_rows(const void* q, const void* k, const void* v,
                               const int* qpos, const int* kpos, void* o,
                               int B, int Sk, int H, int G, int causal,
                               int window, float scale, int n_split,
-                              float* part, cudaStream_t stream) {
+                              float* part, float* out_part,
+                              cudaStream_t stream) {
   using C = SplitCfg<T, D, R>;
   static size_t granted = 48 << 10;  // per instantiation and process
   const int n_tiles = (Sk + kTileK - 1) / kTileK;
@@ -1167,9 +1189,17 @@ cudaError_t launch_split_rows(const void* q, const void* k, const void* v,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, attn_decode_merge<T, D>,
-                            static_cast<const float*>(part),
-                            static_cast<T*>(o), rows, n_split);
+  const float* pm = part;
+  const float* pl = part + (size_t)rows * n_split;
+  const float* pa = part + 2 * (size_t)rows * n_split;
+  const long long rs = n_split, ars = (long long)n_split * D;
+  if (out_part != nullptr)
+    return cudaLaunchKernelEx(&cfg, attn_decode_merge<T, D, true>, pm, pl,
+                              pa, rs, 1LL, ars, (long long)D,
+                              static_cast<T*>(o), out_part, rows, n_split);
+  return cudaLaunchKernelEx(&cfg, attn_decode_merge<T, D, false>, pm, pl, pa,
+                            rs, 1LL, ars, (long long)D, static_cast<T*>(o),
+                            out_part, rows, n_split);
 }
 
 // Rows a block serves: 4 (qwen3-4b's 32/8 heads and fewer), 5 (hymba's
@@ -1179,18 +1209,19 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
                          const int* qpos, const int* kpos, void* o, int B,
                          int Sk, int H, int G, int causal, int window,
                          float scale, int n_split, float* part,
-                         cudaStream_t s) {
+                         float* out_part, cudaStream_t s) {
   const int hpg = H / G;
   if (hpg <= 4)
     return launch_split_rows<T, D, 4>(q, k, v, qpos, kpos, o, B, Sk, H, G,
                                       causal, window, scale, n_split, part,
-                                      s);
+                                      out_part, s);
   if (hpg == 5)
     return launch_split_rows<T, D, 5>(q, k, v, qpos, kpos, o, B, Sk, H, G,
                                       causal, window, scale, n_split, part,
-                                      s);
+                                      out_part, s);
   return launch_split_rows<T, D, 8>(q, k, v, qpos, kpos, o, B, Sk, H, G,
-                                    causal, window, scale, n_split, part, s);
+                                    causal, window, scale, n_split, part,
+                                    out_part, s);
 }
 
 template <typename T>
@@ -1198,12 +1229,36 @@ cudaError_t dispatch_split(int D, const void* q, const void* k, const void* v,
                            const int* qpos, const int* kpos, void* o, int B,
                            int Sk, int H, int G, int causal, int window,
                            float scale, int n_split, float* part,
+                           float* out_part, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_split<T, 16>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, out_part, s);
+    case 32: return launch_split<T, 32>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, out_part, s);
+    case 64: return launch_split<T, 64>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, out_part, s);
+    case 128: return launch_split<T, 128>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, out_part, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The merge of P packed partials a row, (P, rows, 2 + D) f32 (see
+// repro_flash_decode_merge), into o (rows, D), as a plain launch.
+template <typename T, int D>
+cudaError_t launch_merge_packed(const float* part, void* o, int rows, int P,
+                                cudaStream_t s) {
+  const long long rs = 2 + D, ss = (long long)rows * (2 + D);
+  attn_decode_merge<T, D, false><<<(rows + 3) / 4, 128, 0, s>>>(
+      part, part + 1, part + 2, rs, ss, rs, ss, static_cast<T*>(o), nullptr,
+      rows, P);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_merge(int D, const float* part, void* o, int rows, int P,
                            cudaStream_t s) {
   switch (D) {
-    case 16: return launch_split<T, 16>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, s);
-    case 32: return launch_split<T, 32>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, s);
-    case 64: return launch_split<T, 64>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, s);
-    case 128: return launch_split<T, 128>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, s);
+    case 16: return launch_merge_packed<T, 16>(part, o, rows, P, s);
+    case 32: return launch_merge_packed<T, 32>(part, o, rows, P, s);
+    case 64: return launch_merge_packed<T, 64>(part, o, rows, P, s);
+    case 128: return launch_merge_packed<T, 128>(part, o, rows, P, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1261,14 +1316,63 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
       if (dtype == 0)
         return (int)dispatch_split<float>(D, q, k, v, qp, kp, o, B, Sk, H, G,
                                           causal, window, scale, n_split,
-                                          part, s);
+                                          part, nullptr, s);
       return (int)dispatch_split<bf16>(D, q, k, v, qp, kp, o, B, Sk, H, G,
                                        causal, window, scale, n_split, part,
-                                       s);
+                                       nullptr, s);
     }
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// Decode in two steps, for a cache split over ranks (each rank runs the
+// first on its slots, the ranks exchange the partials, each runs the
+// second). The packed partial of a row (b * H + h) is 2 + D f32: m, the max
+// score over the valid keys (NEG_INF if none), l = sum e^(s - m) over them
+// and acc[D] = sum e^(s - m) v, unnormalised.
+//
+// repro_flash_decode_partials: q (B, 1, H, D), k/v (B, Sk, G, D) as in
+// repro_flash_attention_fwd variant 2 (scratch of (2 + D) * B * H *
+// n_split floats), out_part (B * H, 2 + D) f32: the split kernel, then the
+// merge of its n_split ranges into one partial a row.
+int repro_flash_decode_partials(const void* q, const void* k, const void* v,
+                                const void* qpos, const void* kpos,
+                                void* out_part, int B, int Sk, int H, int G,
+                                int D, int causal, int window, float scale,
+                                int dtype, int n_split, void* scratch,
+                                int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B < 1 || Sk < 1 || G < 1 || H % G != 0 || n_split < 1 ||
+      scratch == nullptr || out_part == nullptr || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const int* qp = static_cast<const int*>(qpos);
+  const int* kp = static_cast<const int*>(kpos);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(scratch);
+  float* out = static_cast<float*>(out_part);
+  if (dtype == 0)
+    return (int)dispatch_split<float>(D, q, k, v, qp, kp, nullptr, B, Sk, H,
+                                      G, causal, window, scale, n_split, part,
+                                      out, s);
+  return (int)dispatch_split<bf16>(D, q, k, v, qp, kp, nullptr, B, Sk, H, G,
+                                   causal, window, scale, n_split, part, out,
+                                   s);
+}
+
+// repro_flash_decode_merge: part (P, rows, 2 + D) f32, P partials a row
+// (one a rank, in rank order) -> o (rows, D) in dtype.
+int repro_flash_decode_merge(const void* part, void* o, int rows, int P,
+                             int D, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (rows < 1 || P < 1 || dtype < 0 || dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  const float* p = static_cast<const float*>(part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)dispatch_merge<float>(D, p, o, rows, P, s);
+  return (int)dispatch_merge<bf16>(D, p, o, rows, P, s);
 }
 
 const char* repro_cuda_error_string(int err) {

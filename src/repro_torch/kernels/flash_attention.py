@@ -16,13 +16,21 @@ wrapper picks one by dtype and Sq (``choose_variant``):
 - ``"simt"``: f32 with Sq > 1, f32 on CUDA cores (tensor cores would run
   f32 as TF32).
 
-On a CPU tensor the wrapper runs ``flash_attention_ref``. On a CUDA tensor
-it launches the chosen kernel or raises. Its output has no ``grad_fn``, so
+A decode over a cache split among ranks runs the split kernel in two
+steps with an exchange between them: ``flash_decode_partials`` (the split
+kernel and a merge into one packed partial a row: m, l and the
+unnormalised acc, 2 + D f32) and ``flash_decode_merge`` (the merge of the
+ranks' partials into o); ``flash_decode_partials_ref`` and
+``flash_decode_merge_ref`` are their plain versions.
+
+On a CPU tensor each wrapper runs its plain version. On a CUDA tensor
+it launches its kernel or raises. Its output has no ``grad_fn``, so
 it refuses inputs that require grad under grad mode, on any device;
 ``kernels.autograd.FlashAttentionFn`` carries the gradient.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -45,10 +53,23 @@ _VARIANT_CODE = {name: i for i, name in enumerate(VARIANTS)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # repro_flash_attention_fwd(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, D,
 #     causal, window, scale, dtype, variant, n_split, scratch, device, stream)
-_SIGNATURES = {"repro_flash_attention_fwd": (
-    ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])}
+# repro_flash_decode_partials(q, k, v, qpos, kpos, part, B, Sk, H, G, D,
+#     causal, window, scale, dtype, n_split, scratch, device, stream)
+# repro_flash_decode_merge(part, o, rows, P, D, dtype, device, stream)
+_SIGNATURES = {
+    "repro_flash_attention_fwd": (
+        ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+    "repro_flash_decode_partials": (
+        ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+           ctypes.c_int, ctypes.c_void_p]),
+    "repro_flash_decode_merge": (
+        ctypes.c_int, [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p])}
+#: the launch counts of the two-step decode, beside the variants
+STEPS = ("partials", "merge")
 _sm_count: Dict[int, int] = {}
 _scratch: Dict[Tuple[int, int], torch.Tensor] = {}
 
@@ -143,6 +164,42 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     l = sum(wi * li for wi, li in zip(w, ls))
     acc = sum(wi.permute(0, 3, 1, 2, 4) * ai for wi, ai in zip(w, accs))
     return _finish(acc, l, q)
+
+
+def flash_decode_partials_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0,
+                              qpos: Optional[torch.Tensor] = None,
+                              kpos: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain version of ``flash_decode_partials``: q (B, 1, H, D) against
+    k/v (B, Sk, G, D), one packed partial a row b * H + h, (B * H, 2 + D)
+    f32: m = the max score over the valid keys (NEG_INF where none),
+    l = sum e^(s - m) and acc = sum e^(s - m) v over them."""
+    B, Sq, H, D = q.shape
+    if Sq != 1:
+        raise ValueError(f"decode partials take Sq == 1, got {Sq}")
+    ok = _mask(_positions(qpos, Sq, q.device).long(),
+               _positions(kpos, k.shape[1], q.device).long(), causal, window)
+    s = _scores(q, k, ok)                               # (B, G, H/G, 1, Sk)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(ok, torch.exp(s - m), torch.zeros((), dtype=s.dtype,
+                                                      device=s.device))
+    acc = torch.einsum("bgqst,btgd->bsgqd", p, v.to(p.dtype))
+    rows = B * H
+    return torch.cat([m.reshape(rows, 1), p.sum(dim=-1).reshape(rows, 1),
+                      acc.reshape(rows, D)], dim=1).float()
+
+
+def flash_decode_merge_ref(part: torch.Tensor,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """Plain version of ``flash_decode_merge``: part (P, rows, 2 + D) f32,
+    P packed partials a row -> o (rows, D) in ``dtype``:
+    sum acc_p e^(m_p - M) / max(sum l_p e^(m_p - M), 1e-30), M = max m_p."""
+    m, l, acc = part[..., :1], part[..., 1:2], part[..., 2:]
+    w = torch.exp(m - m.amax(dim=0, keepdim=True))
+    den = (l * w).sum(dim=0).clamp_min(1e-30)
+    return ((acc * w).sum(dim=0) / den).to(dtype)
 
 
 def choose_variant(dtype: torch.dtype, Sq: int) -> str:
@@ -281,10 +338,99 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _VARIANT_CODE[variant], n_split or 0,
         None if scratch is None else scratch.data_ptr(), device, stream)
     build.raise_on_error(lib, err, f"flash_attention ({variant})")
-    flash_attention.launches += 1
-    flash_attention.launches_by_variant[variant] += 1
+    _count(variant, (B, Sq, Sk, H, G, D))
     return out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_variant = {name: 0 for name in VARIANTS}
+#: the two-step decode's launches (``flash_decode_partials``,
+#: ``flash_decode_merge``), which ``launches`` counts too
+flash_attention.launches_by_step = {name: 0 for name in STEPS}
+#: (variant or step, its sizes: B, Sq, Sk, H, G, D; a merge's P, rows, D)
+flash_attention.launches_by_shape = collections.Counter()
+
+
+def _count(kind: str, shape: Tuple[int, ...]) -> None:
+    flash_attention.launches += 1
+    if kind in STEPS:
+        flash_attention.launches_by_step[kind] += 1
+    else:
+        flash_attention.launches_by_variant[kind] += 1
+    flash_attention.launches_by_shape[(kind,) + shape] += 1
+
+
+def flash_decode_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          qpos: Optional[torch.Tensor] = None,
+                          kpos: Optional[torch.Tensor] = None,
+                          n_split: Optional[int] = None) -> torch.Tensor:
+    """q (B, 1, H, D), k/v (B, Sk, G, D) -> the packed partials (B * H,
+    2 + D) f32 of these keys (``flash_decode_partials_ref``): the split
+    kernel over ``n_split`` key ranges (default ``decode_splits``), merged
+    into one partial a row. A launch counts in ``flash_attention``'s
+    launches, and in its ``launches_by_step`` as ``"partials"``."""
+    refuse_grad("flash_decode_partials", q, k, v)
+    dev = q.device
+    if dev.type == "cpu":
+        return flash_decode_partials_ref(q, k, v, causal=causal,
+                                         window=window, qpos=qpos, kpos=kpos)
+    if dev.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.flash_decode_partials(q, k, v, qpos, kpos, causal,
+                                          window)
+    if dev.type != "cuda":
+        raise ValueError(f"no flash_decode_partials for device {dev}")
+    _check_variant("split", q.dtype, q.shape[1])
+    qpos = _positions(qpos, 1, dev)
+    kpos = _positions(kpos, k.shape[1], dev)
+    _check(q, k, v, qpos, kpos)
+    lib = build.load("flash_attention", _SIGNATURES)
+    B, _, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    device = dev.index or 0
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    n_split = n_split or decode_splits(B, G, Sk, _n_sm(device))
+    scratch = _split_scratch((2 + D) * B * H * n_split, device, stream)
+    out = torch.empty((B * H, 2 + D), dtype=torch.float32, device=dev)
+    err = lib.repro_flash_decode_partials(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
+        kpos.data_ptr(), out.data_ptr(), B, Sk, H, G, D, int(causal),
+        int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype], n_split,
+        scratch.data_ptr(), device, stream)
+    build.raise_on_error(lib, err, "flash_decode_partials")
+    _count("partials", (B, 1, Sk, H, G, D))
+    return out
+
+
+def flash_decode_merge(part: torch.Tensor, dtype: torch.dtype
+                       ) -> torch.Tensor:
+    """part (P, rows, 2 + D) f32, P packed partials a row in rank order ->
+    o (rows, D) in ``dtype`` (``flash_decode_merge_ref``). A launch counts
+    in ``flash_attention``'s launches, and in its ``launches_by_step`` as
+    ``"merge"``."""
+    dev = part.device
+    if dev.type == "cpu":
+        return flash_decode_merge_ref(part, dtype)
+    if dev.type == "meta":
+        from repro_torch.kernels import meta
+        return meta.flash_decode_merge(part, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"no flash_decode_merge for device {dev}")
+    P, rows, width = part.shape
+    D = width - 2
+    if (part.dtype != torch.float32 or not part.is_contiguous()
+            or D not in HEAD_DIMS or dtype not in _DTYPE_CODE):
+        raise ValueError(f"need contiguous f32 partials (P, rows, 2 + D), D "
+                         f"in {HEAD_DIMS}, got {tuple(part.shape)} "
+                         f"{part.dtype} -> {dtype}")
+    lib = build.load("flash_attention", _SIGNATURES)
+    device = dev.index or 0
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    out = torch.empty((rows, D), dtype=dtype, device=dev)
+    err = lib.repro_flash_decode_merge(part.data_ptr(), out.data_ptr(), rows,
+                                       P, D, _DTYPE_CODE[dtype], device,
+                                       stream)
+    build.raise_on_error(lib, err, "flash_decode_merge")
+    _count("merge", (P, rows, D))
+    return out

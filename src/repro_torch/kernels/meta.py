@@ -13,6 +13,10 @@ operations:
   each visible (query, key) pair of each head, the queries at the last Sq
   of the Sk key positions (self-attention, and a decode step at the end
   of its cache);
+- ``flash_decode_partials``: q, k, v and the positions in, the packed
+  partials (B * H, 2 + D) f32 out; the flash formula's flops for its one
+  query over its keys; ``flash_decode_merge``: the ranks' partials in, o
+  out, no matrix flops;
 - ``gla_scan``: r, k, v, logw, u and the initial state in, y and the
   final state out; the flops of the chunked form in chunks of
   ``gla_scan.CHUNK`` rows.
@@ -30,12 +34,25 @@ from torch.utils.flop_counter import register_flop_formula
 _LIB = torch.library.Library("repro_torch_meta", "DEF")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, Tensor? qpos, "
             "Tensor? kpos, bool causal, int window) -> Tensor")
+_LIB.define("flash_decode_partials(Tensor q, Tensor k, Tensor v, "
+            "Tensor? qpos, Tensor? kpos, bool causal, int window) -> Tensor")
+_LIB.define("flash_decode_merge(Tensor part, ScalarType dtype) -> Tensor")
 _LIB.define("gla_scan(Tensor r, Tensor k, Tensor v, Tensor logw, Tensor? u, "
             "Tensor? s0) -> (Tensor, Tensor)")
 
 
 def _flash(q, k, v, qpos, kpos, causal, window):
     return torch.empty_like(q)
+
+
+def _partials(q, k, v, qpos, kpos, causal, window):
+    B, _, H, D = q.shape
+    return q.new_empty((B * H, 2 + D), dtype=torch.float32)
+
+
+def _merge(part, dtype):
+    return part.new_empty(part.shape[1:2] + (part.shape[2] - 2,),
+                          dtype=dtype)
 
 
 def _gla(r, k, v, logw, u, s0):
@@ -45,6 +62,8 @@ def _gla(r, k, v, logw, u, s0):
 
 
 _LIB.impl("flash_attention", _flash, "Meta")
+_LIB.impl("flash_decode_partials", _partials, "Meta")
+_LIB.impl("flash_decode_merge", _merge, "Meta")
 _LIB.impl("gla_scan", _gla, "Meta")
 
 
@@ -54,6 +73,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: int) -> torch.Tensor:
     return torch.ops.repro_torch_meta.flash_attention(q, k, v, qpos, kpos,
                                                       causal, window)
+
+
+def flash_decode_partials(q, k, v, qpos, kpos, causal, window):
+    return torch.ops.repro_torch_meta.flash_decode_partials(
+        q, k, v, qpos, kpos, causal, window)
+
+
+def flash_decode_merge(part, dtype):
+    return torch.ops.repro_torch_meta.flash_decode_merge(part, dtype)
 
 
 def gla_scan(r, k, v, logw, u, initial_state):
@@ -85,6 +113,13 @@ def _flash_flops(q_shape, k_shape, v_shape, qpos_shape, kpos_shape,
                  causal, window, out_shape=None, **kwargs) -> int:
     B, Sq, H, D = q_shape
     return 4 * D * B * H * visible_pairs(Sq, k_shape[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch_meta.flash_decode_partials)
+def _partials_flops(q_shape, k_shape, v_shape, qpos_shape, kpos_shape,
+                    causal, window, out_shape=None, **kwargs) -> int:
+    return _flash_flops(q_shape, k_shape, v_shape, qpos_shape, kpos_shape,
+                        causal, window)
 
 
 @register_flop_formula(torch.ops.repro_torch_meta.gla_scan)

@@ -39,12 +39,19 @@ move (``sharding.collectives.LOG``). Per cell:
   op of the kernel's own inputs and outputs, with the kernel's flops),
   backward through the plain versions' autograd, as on the card.
 
-Training cells run the sharded step of ``train.sharded``. Serving cells
-(prefill, decode) hold each layer's weights gathered (a per-step gather of
-every weight over 'model' would cost (M-1)/M of the weights each decode
-step), the experts expert-parallel where the sequence splits (prefill),
-the batch split over the batch axes where it divides, and the cache whole
-over 'model'; the step's tokens and logits are all-gathered over the
+Training cells run the sharded step of ``train.sharded``; serving cells
+(prefill, decode) the sharded serving step of ``serve.sharded``. The
+dense family runs tensor-parallel over 'model' in both (``sharding.tp``):
+a rank holds and computes with its pieces of the attention, MLP and vocab
+leaves, the partial products all-reduced, and at decode its S_max/M slots
+of the KV cache, the ranks' attention partials exchanged and merged. The
+other families keep storage sharding: training gathers each weight over
+'model' per layer; serving holds each layer's weights gathered (a
+per-step gather of every weight over 'model' would cost (M-1)/M of the
+weights each decode step), the experts expert-parallel where the sequence
+splits (prefill), and the cache whole over 'model'. The batch is split
+over the batch axes where it divides; the step's tokens and logits (the
+rank's vocab columns, under tensor parallelism) are all-gathered over the
 batch axes, as JAX's replicated outputs are.
 
 The roofline uses the H100 SXM's datasheet peaks
@@ -76,12 +83,12 @@ from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.hlo_analysis import HBM_BW, ICI_BW, PEAK_FLOPS
 from repro_torch.models import build_model
 from repro_torch.models.common import count_params, tree_map
-from repro_torch.sharding import DEFAULT_RULES, Rules, use_rules
+from repro_torch.serve.sharded import ShardedServing
+from repro_torch.sharding import DEFAULT_RULES, Rules
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.params import batch_axes
 from repro_torch.sharding.partition import mesh_axes, mesh_axis_size
-from repro_torch.train import (OptConfig, TrainConfig, make_prefill_step,
-                               make_serve_step)
+from repro_torch.train import OptConfig, TrainConfig
 from repro_torch.train.sharded import ShardedTraining
 
 META = torch.device("meta")
@@ -231,8 +238,18 @@ def _meta_model(cfg: ArchConfig):
 
 
 def _nbytes(t) -> int:
-    return sum(x.numel() * x.element_size() for x in tree_leaves(t)
-               if isinstance(x, torch.Tensor))
+    """The bytes of the tensors in t: through dicts, lists and tuples and
+    the caches' dataclass records."""
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    if isinstance(t, dict):
+        return sum(_nbytes(x) for x in t.values())
+    if isinstance(t, (list, tuple)):
+        return sum(_nbytes(x) for x in t)
+    if dataclasses.is_dataclass(t) and not isinstance(t, type):
+        return sum(_nbytes(getattr(t, f.name))
+                   for f in dataclasses.fields(t))
+    return 0
 
 
 def _rows(x: torch.Tensor, axes, b_axes, mesh) -> torch.Tensor:
@@ -298,7 +315,7 @@ def count_train(cfg: ArchConfig, cell: ShapeCell, mesh, rules: Rules,
     S = batch["tokens"].shape[1]
     acts = sum(_depths(cfg).values()) * B * S * cfg.d_model * \
         cfg.tdtype.itemsize
-    logits = 2 * B * S * cfg.padded_vocab * 4
+    logits = 2 * B * S * _vocab_cols(full.model) * 4
     n_local = sum(p.numel() for p in full.params.values())
     temp = acts + logits + 3 * 4 * n_local
     mem = {"argument_bytes": params + opt + rows,
@@ -309,11 +326,19 @@ def count_train(cfg: ArchConfig, cell: ShapeCell, mesh, rules: Rules,
                          "and reduction buffer")
 
 
+def _vocab_cols(model) -> int:
+    """The logit columns a rank computes: its vocab rows under tensor
+    parallelism, else the padded vocab."""
+    V = model.cfg.padded_vocab
+    return V // model.tp.M if model.vocab_tp() else V
+
+
 def _serving_param_bytes(cfg: ArchConfig, cell: ShapeCell, mesh,
-                         rules: Rules) -> int:
-    """Every weight gathered, but the experts' 1/M where they run
-    expert-parallel (the sequence splits over M)."""
-    model = _meta_model(cfg)
+                         rules: Rules, model) -> int:
+    """The weights a serving rank holds (``model`` placed by
+    ``ShardedServing``): the tensor-parallel pieces, every other weight
+    whole, but the experts' 1/M where they run expert-parallel (the
+    sequence splits over M)."""
     M = mesh_axis_size(mesh, rules.get("experts"))
     ep = (cfg.n_experts and M > 1 and not cfg.n_experts % M
           and cell.kind == "prefill" and not cell.seq_len % M)
@@ -330,37 +355,45 @@ def count_serve(cfg: ArchConfig, cell: ShapeCell, mesh, rules: Rules
                 ) -> Tuple[Counts, Dict[str, int], str]:
     b_axes = batch_axes(mesh, rules)
 
+    def serving_inputs(c, cl):
+        serving = ShardedServing(_meta_model(c), mesh, rules)
+        inputs = rank_inputs(serving.model, cl, mesh, rules)
+        if cl.kind == "decode":
+            inputs["cache"] = serving.cache_specs(
+                inputs["tokens"].shape[0], serving.model.cache_len(cl))
+        return serving, inputs
+
     def run(c, cl):
-        model = _meta_model(c)
-        inputs = rank_inputs(model, cl, mesh, rules)
+        serving, inputs = serving_inputs(c, cl)
 
         def go():
-            with use_rules(mesh, rules), torch.no_grad():
-                if cell.kind == "prefill":
-                    toks, cache = make_prefill_step(model)(inputs)
-                    logits = None
-                else:
-                    toks, logits, cache = make_serve_step(model)(
-                        inputs["cache"], inputs["tokens"], cl.seq_len - 1)
-                if b_axes and toks.shape[0] < cl.global_batch:
-                    col.gather_dim(toks, mesh, b_axes, 0)
-                    if logits is not None:
-                        col.gather_dim(logits, mesh, b_axes, 0)
+            if cell.kind == "prefill":
+                toks, cache = serving.prefill(inputs)
+                logits = None
+            else:
+                toks, logits, cache = serving.decode(
+                    inputs["cache"], inputs["tokens"], cl.seq_len - 1)
+                if isinstance(logits, list):
+                    logits = logits[0]
+            if b_axes and toks.shape[0] < cl.global_batch:
+                col.gather_dim(toks, mesh, b_axes, 0)
+                if logits is not None:
+                    col.gather_dim(logits, mesh, b_axes, 0)
         return counted(go)
 
     counts = by_shape(cfg, cell, run)
-    model = _meta_model(cfg)
-    inputs = rank_inputs(model, cell, mesh, rules)
-    params = _serving_param_bytes(cfg, cell, mesh, rules)
+    serving, inputs = serving_inputs(cfg, cell)
+    model = serving.model
+    params = _serving_param_bytes(cfg, cell, mesh, rules, model)
     B = inputs["tokens"].shape[0]
-    logits = B * cfg.padded_vocab * 4
+    V = _vocab_cols(model)
+    logits = B * V * 4
     if cell.kind == "prefill":
-        cache = _nbytes(model.cache_specs(B, cell.seq_len))
+        cache = _nbytes(serving.cache_specs(B, cell.seq_len))
         mem = {"argument_bytes": params + _nbytes(inputs),
                "output_bytes": B * 4 + cache, "alias_bytes": 0,
                "temp_bytes": B * inputs["tokens"].shape[1] * (
-                   cfg.padded_vocab * 4 + 4 * cfg.d_model
-                   * cfg.tdtype.itemsize)}
+                   V * 4 + 4 * cfg.d_model * cfg.tdtype.itemsize)}
         by = ("estimate: the prompt's f32 logits and four activations of "
               "d_model")
     else:

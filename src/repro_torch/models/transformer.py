@@ -14,7 +14,13 @@ init style and logical axes (``_Params.add``); ``param_specs`` gives JAX's
 stacked spec tree and ``named_param_specs`` one spec a ``state_dict`` name.
 The models call no sharding ``hint``: the sharded step
 (``train/sharded.py``) stores each parameter as its shard and gathers it
-where the layer reads it, so activations are plain tensors.
+where the layer reads it, so activations are plain tensors. The dense
+family runs tensor-parallel over 'model' where ``sharding.tp`` places it
+(``self.tp``): attention on the rank's heads (``tp_attention``), the MLP
+on its d_ff columns (``tp_mlp``), the embedding, logits and loss on its
+vocab rows (``embed_tokens``, ``logit_parts``, ``tp_softmax_xent``), and
+at decode the KV cache split over the ranks' slots (``SplitCache``,
+``decode_step``).
 
 ``attn_impl`` picks the attention at every call site (forward, the
 training path, prefill, decode): ``"flash"`` (default) is the hand-written
@@ -33,6 +39,7 @@ the kernels carry them through ``kernels.autograd``. ``forward``,
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -52,7 +59,10 @@ ATTN_IMPLS = ("flash", "ref", "chunked")
 class _Params(nn.Module):
     """A flat set of named parameters, each tagged with its init style
     ('normal', 'zeros', 'ones', 'embed', 'scaled') and its logical axes,
-    as ParamSpec does."""
+    as ParamSpec does. ``tp_dims``: its tensor-parallel leaves
+    (``sharding.tp.mark``)."""
+
+    tp_dims: Dict[str, Tuple[int, bool]] = {}
 
     def __init__(self):
         super().__init__()
@@ -173,27 +183,32 @@ def apply_norm(cfg: ArchConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
     return cm.rms_norm(x, p.scale)
 
 
+def _heads(cfg: ArchConfig, p: Attention, t: torch.Tensor, n: int,
+           norm: str, positions: torch.Tensor, rope: bool) -> torch.Tensor:
+    """A projection (B, S, n * hd) -> (B, S, n, hd) heads, with the qk-norm
+    ``norm`` ("q_norm"/"k_norm"; None: v) and RoPE."""
+    B, S, _ = t.shape
+    t = t.reshape(B, S, n, cfg.hdim)
+    if norm is not None and cfg.qk_norm:
+        t = cm.rms_norm(t, getattr(p, norm))
+    if norm is not None and rope:
+        t = cm.apply_rope(t, positions, cfg.rope_theta)
+    return t
+
+
 def project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
                 positions: torch.Tensor, *, rope: bool = True
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,G,hd), with bias/qk-norm/RoPE
     (``rope=False``: no rotation, as encdec's sinusoid-embedded
     attention)."""
-    B, S, _ = x.shape
-    H, G, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
+    H, G = cfg.n_heads, cfg.n_kv_heads
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, G, hd)
-    v = v.reshape(B, S, G, hd)
-    if cfg.qk_norm:
-        q = cm.rms_norm(q, p.q_norm)
-        k = cm.rms_norm(k, p.k_norm)
-    if rope:
-        q = cm.apply_rope(q, positions, cfg.rope_theta)
-        k = cm.apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+    return (_heads(cfg, p, q, H, "q_norm", positions, rope),
+            _heads(cfg, p, k, G, "k_norm", positions, rope),
+            _heads(cfg, p, v, G, None, positions, rope))
 
 
 def attn_out(p: Attention, o: torch.Tensor) -> torch.Tensor:
@@ -238,14 +253,180 @@ def decode_attention_raw(cfg: ArchConfig, p: Attention, x: torch.Tensor,
                                         qpos=positions, kpos=kpos)
 
 
-def mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
-    h = x @ p.wi
+def _act(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.act == "swiglu":
         gate, up = h.chunk(2, dim=-1)
-        h = F.silu(gate.float()).to(up.dtype) * up
-    else:  # jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(h.float(), approximate="tanh").to(h.dtype)
-    return h @ p.wo
+        return F.silu(gate.float()).to(up.dtype) * up
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(h.float(), approximate="tanh").to(h.dtype)
+
+
+def mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+    return _act(cfg, x @ p.wi) @ p.wo
+
+
+# ------------------------------------------------------ tensor-parallel --
+def tp_on(p: nn.Module) -> bool:
+    """Whether module p's leaves run tensor-parallel."""
+    return bool(p.tp_dims)
+
+
+def tp_mlp(cfg: ArchConfig, tp, p: MLP, h: torch.Tensor) -> torch.Tensor:
+    """Column-parallel ``wi`` (each rank's gate and up columns paired),
+    row-parallel ``wo``, the ranks' products summed."""
+    return tp.reduce([_act(cfg, x @ wi) @ wo for x, wi, wo in zip(
+        tp.copy(h), tp.pieces(p, "wi"), tp.pieces(p, "wo"))])
+
+
+def _tp_qkv(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor
+            ) -> Tuple[List[torch.Tensor], ...]:
+    """Each rank's columns of the q, k and v projections (and biases)."""
+    hs = tp.copy(h)
+    outs = []
+    for w in ("wq", "wk", "wv"):
+        t = [x @ wr for x, wr in zip(hs, tp.pieces(p, w))]
+        if cfg.qkv_bias:
+            t = [o + b for o, b in zip(t, tp.pieces(p, "b" + w[1]))]
+        outs.append(t)
+    return tuple(outs)
+
+
+def kv_index(cfg: ArchConfig, T: int, g: int) -> torch.Tensor:
+    """The kv heads that head group g of T reads, one a local kv head: the
+    single head of the group's GQA group where its heads lie in one, else
+    one for each of its q heads (q head h reads kv head h // (H/G))."""
+    H, G = cfg.n_heads, cfg.n_kv_heads
+    Hl, group = H // T, H // G
+    if group % Hl == 0:
+        return torch.tensor([g * Hl // group])
+    return torch.arange(g * Hl, (g + 1) * Hl) // group
+
+
+def tp_out(tp, p: Attention, os: List[torch.Tensor]) -> torch.Tensor:
+    """Row-parallel ``wo``: each rank's (B, S, H*hd/M) columns of o times
+    its rows, the ranks' products summed."""
+    return tp.reduce([o @ wo for o, wo in zip(os, tp.pieces(p, "wo"))])
+
+
+def tp_attention(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor,
+                 positions: torch.Tensor, attend
+                 ) -> Tuple[torch.Tensor, object]:
+    """Self-attention of the normed input h (B, S, d), every rank holding
+    it, on the ranks' pieces of a tensor-parallel ``Attention``;
+    ``attend(q, k, v)`` is the kernel's call. Returns (the output, summed
+    over the ranks; (k, v) with every kv head, for the prefill's cache:
+    one tensor each that every rank holds, or a list of each rank's kv
+    heads where those are its own columns).
+
+    The heads split into T = gcd(H, M) groups of H/T, group g on ranks
+    g M/T ..; where T < M (the heads do not divide, as JAX's 'heads' ->
+    'model' falls back), each group's M/T ranks repeat its attention and
+    q is gathered. A rank's kv heads are its own columns where G % M == 0
+    and T == M (rank r's q heads read exactly kv heads r G/M ..); else k
+    and v are gathered and the rank takes the heads its q heads read
+    (``kv_index``), so the kernel pairs heads by index as on one device.
+    Each rank then multiplies its H hd/M columns of the group's o by its
+    rows of ``wo``."""
+    H, G, hd, M = cfg.n_heads, cfg.n_kv_heads, cfg.hdim, tp.M
+    T = math.gcd(H, M)
+    per, Hl, n = M // T, H // T, H * hd // M
+    q, k, v = _tp_qkv(cfg, tp, p, h)
+    if per == 1:
+        qs = [_heads(cfg, p, x, Hl, "q_norm", positions, True) for x in q]
+    else:
+        qf = tp.gather(q, -1, False)
+        qs = [_heads(cfg, p, qf[..., r // per * Hl * hd:
+                                (r // per + 1) * Hl * hd],
+                     Hl, "q_norm", positions, True) for r in tp.ranks]
+    if per == 1 and G % M == 0:
+        ks = [_heads(cfg, p, x, G // M, "k_norm", positions, True)
+              for x in k]
+        vs = [_heads(cfg, p, x, G // M, None, positions, True) for x in v]
+        kv = (ks, vs)
+    else:
+        kf = _heads(cfg, p, tp.gather(k, -1, False), G, "k_norm",
+                    positions, True)
+        vf = _heads(cfg, p, tp.gather(v, -1, False), G, None, positions,
+                    True)
+        idx = [kv_index(cfg, T, r // per).to(h.device) for r in tp.ranks]
+        ks = [kf.index_select(2, i) for i in idx]
+        vs = [vf.index_select(2, i) for i in idx]
+        kv = (kf, vf)
+    os = [attend(a, b, c).flatten(2)[..., r % per * n:(r % per + 1) * n]
+          for r, a, b, c in zip(tp.ranks, qs, ks, vs)]
+    return tp_out(tp, p, os), kv
+
+
+def tp_qkv_whole(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k, v with every head, each rank's columns gathered (a decode
+    step's few rows)."""
+    q, k, v = (tp.gather(t, -1, True) for t in _tp_qkv(cfg, tp, p, h))
+    return (_heads(cfg, p, q, cfg.n_heads, "q_norm", positions, True),
+            _heads(cfg, p, k, cfg.n_kv_heads, "k_norm", positions, True),
+            _heads(cfg, p, v, cfg.n_kv_heads, None, positions, True))
+
+
+def tp_softmax_xent(tp, parts: List[torch.Tensor], targets: torch.Tensor,
+                    mask: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``softmax_xent`` over logits split by vocab columns, each rank
+    holding its columns (``parts``): the detached max over the ranks, the
+    sum of the ranks' exp-sums, the true logit from the rank that holds
+    its column."""
+    Vl = parts[0].shape[-1]
+    lf = [x.float() for x in parts]
+    m = tp.max([x.amax(dim=-1, keepdim=True).detach() for x in lf])
+    lse = torch.log(tp.reduce([torch.exp(x - m).sum(dim=-1) for x in lf])
+                    ) + m[..., 0]
+    t = targets.long()
+    trues = []
+    for r, x in zip(tp.ranks, lf):
+        local = t - r * Vl
+        mine = (local >= 0) & (local < Vl)
+        got = x.gather(-1, local.clamp(0, Vl - 1)[..., None])[..., 0]
+        trues.append(torch.where(mine, got, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device)))
+    nll = (lse - tp.reduce(trues)) * mask
+    denom = mask.sum().clamp_min(1.0)
+    return nll.sum() / denom, denom
+
+
+def tp_argmax(tp, parts: List[torch.Tensor]) -> torch.Tensor:
+    """The greedy token of logits split by vocab columns: each rank's
+    best, then the best over the ranks, a tie to the lowest index (as
+    ``torch.argmax`` over the whole row)."""
+    Vl = parts[0].shape[-1]
+    vals, idxs = [], []
+    for r, x in zip(tp.ranks, parts):
+        val, idx = x.float().max(dim=-1, keepdim=True)
+        vals.append(val)
+        idxs.append(idx + r * Vl)
+    val = tp.gather(vals, -1, True)
+    idx = tp.gather(idxs, -1, True)
+    return idx.gather(-1, val.argmax(dim=-1, keepdim=True))[..., 0]
+
+
+def tp_decode_attention(tp, q: torch.Tensor, ks: List[torch.Tensor],
+                        vs: List[torch.Tensor], kpos: List[torch.Tensor],
+                        qpos: torch.Tensor, window: int,
+                        attn_impl: str = "flash") -> torch.Tensor:
+    """One decode step of q (B, 1, H, hd), every head, against a cache
+    split over the ranks' slots: each rank's packed partials over its
+    slots, exchanged ((2 + hd) f32 a head), merged in rank order. The
+    kernel's two steps for ``attn_impl`` "flash", else their plain
+    versions."""
+    from repro_torch.kernels import flash_attention as fa
+    partials, merge = ((fa.flash_decode_partials, fa.flash_decode_merge)
+                       if attn_impl == "flash" else
+                       (fa.flash_decode_partials_ref,
+                        fa.flash_decode_merge_ref))
+    B, _, H, hd = q.shape
+    parts = [partials(q, k, v, causal=True, window=window, qpos=qpos,
+                      kpos=kp)[None] for k, v, kp in zip(ks, vs, kpos)]
+    part = tp.gather(parts, 0, True).contiguous()
+    return merge(part, q.dtype).reshape(B, 1, H, hd)
 
 
 def softmax_xent(logits: torch.Tensor, targets: torch.Tensor,
@@ -314,9 +495,25 @@ class DecodeCache:
     kpos: torch.Tensor       # (S_max,) int32 stored positions, -1 = empty
 
 
+@dataclasses.dataclass
+class SplitCache:
+    """The KV cache split over the 'model' ranks' slots (JAX's
+    ``cache_seq`` -> 'model'): rank r holds slots r C .. (r + 1) C - 1 of
+    the S_max-slot ring, C = S_max / M, every kv head. ``parts``: one
+    ``DecodeCache`` of C slots a rank this process runs."""
+
+    parts: List[DecodeCache]
+    slots: int               # S_max
+
+
 class TransformerLM(nn.Module):
     """Dense decoder-only LM. Parameters are created uninitialised on
     ``device``; fill them with ``init_params`` or ``load_state_dict``."""
+
+    #: the tensor-parallel group (``sharding.tp``), None: not placed so
+    tp = None
+    #: the model's own tensor-parallel leaves (embed, lm_head)
+    tp_dims: Dict[str, Tuple[int, bool]] = {}
 
     def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
                  attn_impl: str = "flash"):
@@ -341,6 +538,28 @@ class TransformerLM(nn.Module):
     #: the model's bare parameters: (init style, logical axes)
     TOP_PARAMS = {"embed": ("embed", ("vocab", "embed")),
                   "lm_head": ("scaled", ("embed", "vocab"))}
+
+    def tp_roles(self) -> Dict[str, Tuple[int, bool, str]]:
+        """The leaves that may run tensor-parallel over 'model'
+        (``sharding.tp``): name -> (dim split, paired, group). The dense
+        family's attention, MLP and vocab; none for the other families,
+        which keep storage sharding."""
+        if self.cfg.family != "dense":
+            return {}
+        out = {"embed": (0, False, "vocab")}
+        if not self.cfg.tie_embeddings:
+            out["lm_head"] = (1, False, "vocab")
+        swiglu = self.cfg.act == "swiglu"
+        for i, blk in enumerate(self.layers):
+            a = f"layers.{i}.attn"
+            for leaf in blk.attn.inits:
+                if leaf[0] in "wb" and leaf != "wo":
+                    out[f"{a}.{leaf}"] = (1 if leaf[0] == "w" else 0, False, a)
+            out[f"{a}.wo"] = (0, False, a)
+            m = f"layers.{i}.mlp"
+            out[f"{m}.wi"] = (1, swiglu, m)
+            out[f"{m}.wo"] = (0, False, m)
+        return out
 
     def make_block(self, device: torch.device) -> nn.Module:
         """One layer's parameter modules; subclasses return their own.
@@ -434,24 +653,74 @@ class TransformerLM(nn.Module):
 
     # ------------------------------------------------------------ forward --
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        return F.embedding(tokens, self.embed)
+        tp = self.tp
+        if tp is None or "embed" not in self.tp_dims:
+            return F.embedding(tokens, self.embed)
+        # vocab-parallel: each rank looks up the tokens in its rows, zero
+        # elsewhere, and the ranks' lookups are summed
+        outs = []
+        for r, e in zip(tp.ranks, tp.pieces(self, "embed")):
+            Vl = e.shape[0]
+            local = tokens.long() - r * Vl
+            mine = ((local >= 0) & (local < Vl))[..., None]
+            y = F.embedding(local.clamp(0, Vl - 1), e)
+            outs.append(torch.where(mine, y, torch.zeros(
+                (), dtype=y.dtype, device=y.device)))
+        return tp.reduce(outs)
+
+    def attention(self, p: Attention, h: torch.Tensor,
+                  positions: torch.Tensor, attend) -> Tuple[torch.Tensor,
+                                                            object]:
+        """The attention block of the normed input h: (output, k/v as
+        the cache takes them). ``attend(q, k, v)`` is the attention
+        call."""
+        if self.tp is not None and tp_on(p):
+            return tp_attention(self.cfg, self.tp, p, h, positions, attend)
+        q, k, v = project_qkv(self.cfg, p, h, positions)
+        return attn_out(p, attend(q, k, v)), (k, v)
 
     def layer_body(self, p: Block, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        q, k, v = project_qkv(cfg, p.attn, apply_norm(cfg, p.ln1, x),
-                              positions)
-        o = causal_attention(cfg, q, k, v, positions, self.attn_impl)
-        x = x + attn_out(p.attn, o)
+        a, _ = self.attention(
+            p.attn, apply_norm(cfg, p.ln1, x), positions,
+            lambda q, k, v: causal_attention(cfg, q, k, v, positions,
+                                             self.attn_impl))
+        x = x + a
         return x + self.ffn(p, apply_norm(cfg, p.ln2, x))
 
     def ffn(self, p: nn.Module, h: torch.Tensor) -> torch.Tensor:
         """The layer's feed-forward block on its normed input; the moe
         family overrides it."""
+        if self.tp is not None and tp_on(p.mlp):
+            return tp_mlp(self.cfg, self.tp, p.mlp, h)
         return mlp(self.cfg, p.mlp, h)
+
+    def vocab_tp(self) -> bool:
+        return self.tp is not None and "embed" in self.tp_dims
+
+    def logit_parts(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Vocab-parallel logits: each rank's columns, the padding tail
+        masked by global column index."""
+        cfg, tp = self.cfg, self.tp
+        x = apply_norm(cfg, self.final_norm, x)
+        heads = ([e.T for e in tp.pieces(self, "embed")]
+                 if cfg.tie_embeddings else tp.pieces(self, "lm_head"))
+        parts = []
+        for r, xr, head in zip(tp.ranks, tp.copy(x), heads):
+            logits = xr @ head
+            Vl = logits.shape[-1]
+            if cfg.padded_vocab != cfg.vocab:
+                pad = torch.arange(r * Vl, (r + 1) * Vl,
+                                   device=logits.device) >= cfg.vocab
+                logits = logits.masked_fill(pad, -1e9)
+            parts.append(logits)
+        return parts
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        if self.vocab_tp():
+            return self.tp.gather(self.logit_parts(x), -1, True)
         x = apply_norm(cfg, self.final_norm, x)
         head = self.embed.T if cfg.tie_embeddings else self.lm_head
         logits = x @ head
@@ -492,12 +761,20 @@ class TransformerLM(nn.Module):
         prefix ahead of them takes none, as in JAX ``VlmLM.loss``).
         Returns (loss, {"loss", "tokens"})."""
         tokens = batch["tokens"]
-        logits = self.logits(batch, remat=remat)
-        logits = logits[:, logits.shape[1] - tokens.shape[1]:]
         targets = torch.roll(tokens, -1, dims=1)
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
         mask[:, -1] = 0.0
+        if self.vocab_tp():  # the dense family: vocab-parallel
+            positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                     device=tokens.device)
+            x = self.backbone(self.embed_tokens(tokens), positions,
+                              remat=remat)
+            loss, denom = tp_softmax_xent(self.tp, self.logit_parts(x),
+                                          targets, mask)
+            return loss, {"loss": loss, "tokens": denom}
+        logits = self.logits(batch, remat=remat)
+        logits = logits[:, logits.shape[1] - tokens.shape[1]:]
         loss, denom = softmax_xent(logits, targets, mask)
         return loss, {"loss": loss, "tokens": denom}
 
@@ -513,10 +790,16 @@ class TransformerLM(nn.Module):
             v=torch.zeros(shp, dtype=cfg.tdtype, device=dev),
             kpos=torch.full((S_max,), -1, dtype=torch.int32, device=dev))
 
+    def join(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Whole logits from a step's parts: the ranks' vocab columns
+        gathered, or the one whole tensor."""
+        return (self.tp.gather(parts, -1, True) if self.vocab_tp()
+                else parts[0])
+
     @torch.no_grad()
     def prefill(self, batch: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, DecodeCache]:
+                ) -> Tuple[torch.Tensor, object]:
         """Run the prompt, return (full logits, filled cache).
 
         ``cache_len`` reserves headroom for subsequent decode steps; the
@@ -526,43 +809,128 @@ class TransformerLM(nn.Module):
                                      cache_len)
 
     def prefill_embedded(self, x: torch.Tensor, cache_len: Optional[int]
-                         ) -> Tuple[torch.Tensor, DecodeCache]:
+                         ) -> Tuple[torch.Tensor, object]:
         """``prefill`` from the embedded inputs x (B, S, d) at positions
-        0..S-1 (the vlm family prepends its patches). Attention is JAX's
-        direct ``attention_chunked`` call (``cm.chunked_call``)."""
-        cfg = self.cfg
-        S = x.shape[1]
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        ks: List[torch.Tensor] = []
-        vs: List[torch.Tensor] = []
-        for p in self.layers:
-            q, k, v = project_qkv(cfg, p.attn, apply_norm(cfg, p.ln1, x),
-                                  positions)
-            o = cm.chunked_call(self.attn_impl, q, k, v, causal=True,
-                                window=cfg.sliding_window, qpos=positions,
-                                kpos=positions)
-            x = x + attn_out(p.attn, o)
-            x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
-            ks.append(k)
-            vs.append(v)
-        logits = self.unembed(x)
-        k_all, v_all, kpos = ring_layout(torch.stack(ks), torch.stack(vs), S,
-                                         cache_len, window=cfg.sliding_window)
-        return logits, DecodeCache(k=k_all.contiguous(),
-                                   v=v_all.contiguous(), kpos=kpos)
+        0..S-1 (the vlm family prepends its patches)."""
+        parts, cache = self.prefill_split(x, cache_len)
+        return self.join(parts), cache
 
     @torch.no_grad()
-    def decode_step(self, cache: DecodeCache, tokens: torch.Tensor,
-                    pos: int) -> Tuple[torch.Tensor, DecodeCache]:
-        """One decode step: tokens (B,1) at position ``pos``. Updates
-        ``cache`` in place and returns it with the (B,1,V) logits."""
-        cfg = self.cfg
-        x = self.embed_tokens(tokens)
-        cache.kpos[pos % cache.k.shape[2]] = pos
-        for i, p in enumerate(self.layers):
-            o = decode_attention_raw(
-                cfg, p.attn, apply_norm(cfg, p.ln1, x), cache.k[i],
-                cache.v[i], pos, cache.kpos, attn_impl=self.attn_impl)
-            x = x + attn_out(p.attn, o)
+    def prefill_split(self, x: torch.Tensor, cache_len: Optional[int]
+                      ) -> Tuple[List[torch.Tensor], object]:
+        """Every layer over the embedded prompt x (B, S, d): (the logits'
+        parts, ``logit_parts`` under vocab parallelism, else [the whole
+        logits]; the cache). Attention is JAX's direct
+        ``attention_chunked`` call (``cm.chunked_call``). Under tensor
+        parallelism the cache is split over the ranks' slots
+        (``SplitCache``) where its length divides by M; else (and on one
+        device) it is whole (a ``DecodeCache``): each layer's k/v with
+        every kv head, laid out as the ring, then each rank's slots (from
+        a list of the ranks' kv heads, an exchange of heads for slots)."""
+        cfg, tp = self.cfg, self.tp
+        S = x.shape[1]
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)
+        kvs = []
+        for p in self.layers:
+            a, kv = self.attention(
+                p.attn, apply_norm(cfg, p.ln1, x), positions,
+                lambda q, k, v: cm.chunked_call(
+                    self.attn_impl, q, k, v, causal=True,
+                    window=cfg.sliding_window, qpos=positions,
+                    kpos=positions))
+            x = x + a
             x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
-        return self.unembed(x), cache
+            kvs.append(kv)
+        parts = (self.logit_parts(x) if self.vocab_tp()
+                 else [self.unembed(x)])
+        lists = isinstance(kvs[0][0], list)
+        ks, vs, kpos = [], [], None
+        for j in range(len(kvs[0][0]) if lists else 1):
+            kj = torch.stack([kv[0][j] if lists else kv[0] for kv in kvs])
+            vj = torch.stack([kv[1][j] if lists else kv[1] for kv in kvs])
+            kj, vj, kpos = ring_layout(kj, vj, S, cache_len,
+                                       window=cfg.sliding_window)
+            ks.append(kj)
+            vs.append(vj)
+        C = kpos.shape[0]
+        if tp is None or C % tp.M:
+            k = ks[0] if not lists else tp.gather(ks, 3, True)
+            v = vs[0] if not lists else tp.gather(vs, 3, True)
+            return parts, DecodeCache(k=k.contiguous(), v=v.contiguous(),
+                                      kpos=kpos)
+        if lists:
+            ks, vs = tp.to_slots(ks, 3, 2), tp.to_slots(vs, 3, 2)
+        else:
+            ks, vs = tp.slice(ks[0], 2), tp.slice(vs[0], 2)
+        kps = tp.slice(kpos, 0)
+        return parts, SplitCache(
+            [DecodeCache(k=k.contiguous(), v=v.contiguous(),
+                         kpos=kp.contiguous())
+             for k, v, kp in zip(ks, vs, kps)], C)
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, object]:
+        """One decode step: tokens (B,1) at position ``pos``. Updates
+        ``cache`` in place and returns it with the (B,1,V) logits
+        (``decode_split`` runs the layers)."""
+        parts, cache = self.decode_split(cache, tokens, pos)
+        return self.join(parts), cache
+
+    @torch.no_grad()
+    def decode_split(self, cache, tokens: torch.Tensor, pos: int
+                     ) -> Tuple[List[torch.Tensor], object]:
+        """Every layer of one decode step: (the logits' parts, as
+        ``prefill_split``'s; the cache, updated in place). Under tensor
+        parallelism q, k, v come with every head (the ranks' columns
+        gathered), the new k/v are written by the rank that holds slot
+        pos % S_max, attention over each rank's slots is merged across
+        the ranks (``tp_decode_attention``), and the output, MLP and
+        logits are the ranks' pieces."""
+        cfg, tp = self.cfg, self.tp
+        x = self.embed_tokens(tokens)
+        qpos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        split = isinstance(cache, SplitCache)
+        if split:
+            C = cache.slots // tp.M
+            w = pos % cache.slots
+            mine = [j for j, r in enumerate(tp.ranks) if r == w // C]
+            for j in mine:
+                cache.parts[j].kpos[w % C] = pos
+        else:
+            w = pos % cache.k.shape[2]
+            cache.kpos[w] = pos
+        for i, p in enumerate(self.layers):
+            h = apply_norm(cfg, p.ln1, x)
+            if tp_on(p.attn):
+                q, k, v = tp_qkv_whole(cfg, tp, p.attn, h, qpos)
+            else:
+                q, k, v = project_qkv(cfg, p.attn, h, qpos)
+            if split:
+                for j in mine:
+                    c = cache.parts[j]
+                    c.k[i][:, w % C] = k[:, 0].to(c.k.dtype)
+                    c.v[i][:, w % C] = v[:, 0].to(c.v.dtype)
+                o = tp_decode_attention(
+                    tp, q, [c.k[i] for c in cache.parts],
+                    [c.v[i] for c in cache.parts],
+                    [c.kpos for c in cache.parts], qpos, cfg.sliding_window,
+                    self.attn_impl)
+            else:
+                cache.k[i][:, w] = k[:, 0].to(cache.k.dtype)
+                cache.v[i][:, w] = v[:, 0].to(cache.v.dtype)
+                o = cm.make_attention(self.attn_impl)(
+                    q, cache.k[i], cache.v[i], causal=True,
+                    window=cfg.sliding_window, qpos=qpos, kpos=cache.kpos)
+            if tp_on(p.attn):
+                B = o.shape[0]
+                n = cfg.n_heads * cfg.hdim // tp.M
+                o = o.reshape(B, 1, -1)
+                x = x + tp_out(tp, p.attn,
+                               [o[..., r * n:(r + 1) * n] for r in tp.ranks])
+            else:
+                x = x + attn_out(p.attn, o)
+            x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
+        parts = (self.logit_parts(x) if self.vocab_tp()
+                 else [self.unembed(x)])
+        return parts, cache

@@ -167,6 +167,18 @@ def all_reduce_sum(x: torch.Tensor, mesh: Mesh, axes: Axes
     return out
 
 
+def all_reduce_max(x: torch.Tensor, mesh: Mesh, axes: Axes
+                   ) -> torch.Tensor:
+    """The elementwise max over ``axes``, a new tensor (no gradient)."""
+    n = axis_size(mesh, axes)
+    LOG.add("all-reduce", n, x.numel() * x.element_size())
+    if _reckoned(x, mesh):
+        return x.new_empty(x.shape)
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_group(mesh, axes))
+    return out
+
+
 def all_to_all0(x: torch.Tensor, mesh: Mesh, axes: Axes) -> torch.Tensor:
     """Equal-split all_to_all over dim 0: chunk j goes to the rank of
     index j, and row block s of the result came from rank s."""
@@ -207,6 +219,36 @@ class GatherDim(torch.autograd.Function):
             return chunk_dim(g, mesh, axes, dim).contiguous(), None, None, \
                 None, None
         return scatter_sum_dim(g, mesh, axes, dim), None, None, None, None
+
+
+class Copy(torch.autograd.Function):
+    """The input of a tensor-parallel layer that every rank of ``axes``
+    holds whole: itself forward; its gradient summed over ``axes``
+    backward, each rank having taken the part its own columns give."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axes = ctx.args
+        return all_reduce_sum(g, mesh, axes), None, None
+
+
+class Reduce(torch.autograd.Function):
+    """The sum over ``axes`` of the ranks' partial results (a row-parallel
+    product): each rank's part feeds the sum once, so the gradient of the
+    sum is its gradient, unchanged."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce_sum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
 
 
 class SliceDim(torch.autograd.Function):

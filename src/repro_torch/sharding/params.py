@@ -1,5 +1,6 @@
 """A model's parameters placed on a mesh: each rank stores its shard of
-every parameter and gathers it where it is used.
+every parameter and gathers it where it is used, or, for the leaves that
+go tensor-parallel (``sharding.tp``), computes with its shard.
 
 The placements are ``tree_shardings``' over the model's
 ``named_param_specs()`` (one spec a ``state_dict`` name, no ``layers``
@@ -11,9 +12,13 @@ compute, and again in the remat recompute of the backward. The gathered
 tensor is a plain tensor, so the kernels' wrappers see what they see on
 one device.
 
-This is how the port realises JAX's 'model' axis, which GSPMD derives
-from the rules (``qkv``, ``heads``, ``mlp``, ``vocab`` -> 'model'):
-storage sharding. The ranks of a 'model' group compute the same thing
+The 'model' axis, which GSPMD derives from the rules (``qkv``, ``heads``,
+``mlp``, ``vocab`` -> 'model'), is tensor parallelism for the dense
+family: ``tp.tp_leaves`` names the leaves, which keep their piece over
+'model' for compute (``Placement.tp``) and are gathered over the other
+axes only; the model then runs on the rank's heads, d_ff columns and
+vocab rows (``models.transformer``). Every other leaf split over 'model'
+is storage sharding: the ranks of a 'model' group compute the same thing
 after the gather, each on its data rank's rows, so the gradient of the
 gathered tensor is whole on each of them and each keeps its piece
 (``GatherDim`` with ``replicated``). A parameter split over a batch axis
@@ -35,6 +40,7 @@ from torch.distributed.tensor import Shard
 
 from repro_torch.models.common import ParamSpec
 from repro_torch.sharding import collectives as col
+from repro_torch.sharding import tp as tpm
 from repro_torch.sharding.partition import Rules, mesh_axes, tree_shardings
 
 
@@ -52,14 +58,22 @@ class Gather:
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where one parameter lives: its full spec and the gathers that
-    rebuild it from this rank's piece."""
+    rebuild it from this rank's piece; ``tp`` the role of a
+    tensor-parallel leaf (its 'model' gather is never made)."""
 
     spec: ParamSpec
     gathers: Tuple[Gather, ...]
+    tp: Optional[tpm.Role] = None
 
     def axes(self) -> Tuple[str, ...]:
         """The mesh axes the parameter is stored over."""
         return tuple(a for g in self.gathers for a in g.axes)
+
+    def used(self) -> Tuple[Gather, ...]:
+        """The gathers made where the model reads the parameter."""
+        if self.tp is None:
+            return self.gathers
+        return tuple(g for g in self.gathers if tpm.AXIS not in g.axes)
 
 
 def batch_axes(mesh, rules: Rules) -> Tuple[str, ...]:
@@ -120,24 +134,58 @@ def _owner(model: nn.Module, name: str) -> Tuple[nn.Module, str]:
 
 
 @torch.no_grad()
-def place(model: nn.Module, mesh, rules: Rules) -> Dict[str, Placement]:
+def place(model: nn.Module, mesh, rules: Rules, *,
+          serving: bool = False) -> Dict[str, Placement]:
     """Store this rank's piece of every parameter of ``model`` (in place)
-    and gather it on use. Returns the placements by ``state_dict``
-    name. Works on ``meta`` with a ``MeshShape`` (this rank: index 0 on
-    every axis), which is how the dry run sizes a rank."""
+    and gather it on use, but over 'model' for the tensor-parallel
+    leaves, which the model then computes with (``model.tp``, a
+    ``tp.MeshTP``). ``serving``: only the tensor-parallel leaves are
+    split; the rest stay whole (a serving rank holds its weights
+    gathered). Returns the placements by ``state_dict`` name. Works on
+    ``meta`` with a ``MeshShape`` (this rank: index 0 on every axis),
+    which is how the dry run sizes a rank."""
     plan = placements(model.named_param_specs(), mesh, rules)
+    leaves = tpm.tp_leaves(model, mesh, rules)
+    M = col.axis_size(mesh, tpm.AXIS) if leaves else 1
+    r = col.axis_index(mesh, tpm.AXIS) if leaves else 0
     for name, pl in plan.items():
-        if not pl.gathers:
+        if name in leaves:
+            pl = plan[name] = dataclasses.replace(pl, tp=leaves[name])
+        elif serving or not pl.gathers:
             continue
         owner, leaf = _owner(model, name)
         piece = getattr(owner, leaf).detach()
         for g in pl.gathers:
-            piece = col.chunk_dim(piece, mesh, g.axes, g.dim)
+            if pl.tp is not None and tpm.AXIS in g.axes:
+                piece = tpm.piece(piece, pl.tp, M, r)
+            elif not serving:
+                piece = col.chunk_dim(piece, mesh, g.axes, g.dim)
         setattr(owner, leaf, nn.Parameter(piece.clone()))
-        parametrize.register_parametrization(owner, leaf,
-                                             Gathered(mesh, pl.gathers),
-                                             unsafe=True)
+        if pl.used() and not serving:
+            parametrize.register_parametrization(owner, leaf,
+                                                 Gathered(mesh, pl.used()),
+                                                 unsafe=True)
+    tpm.mark(model, leaves)
+    model.tp = tpm.MeshTP(mesh) if leaves else None
     return plan
+
+
+def whole_params(model: nn.Module, plan: Dict[str, Placement]
+                 ) -> Dict[str, torch.Tensor]:
+    """Every parameter whole, in JAX's layout (a ``state_dict`` of the
+    unplaced model): the tensor-parallel pieces gathered over 'model'.
+    Every rank must call it (it runs collectives)."""
+    out = {}
+    for name, pl in plan.items():
+        owner, leaf = _owner(model, name)
+        t = getattr(owner, leaf).detach()
+        if pl.tp is not None:
+            M = col.axis_size(model.tp.mesh, tpm.AXIS)
+            parts = col.gather_dim(t.unsqueeze(0).contiguous(),
+                                   model.tp.mesh, tpm.AXIS, 0)
+            t = tpm.whole(parts.unbind(0), pl.tp) if M > 1 else t
+        out[name] = t
+    return out
 
 
 def stored(model: nn.Module, name: str) -> nn.Parameter:

@@ -11,7 +11,11 @@ Each rank runs, per step:
   rules;
 - the gradients summed over the batch axes by ``make_grad_allreduce``
   (hierarchical where the mesh has a 'pod' axis), in one flat f32 buffer,
-  and divided by the number of batch ranks;
+  and divided by the number of batch ranks. A tensor-parallel leaf
+  (``sharding.tp``: the dense family's attention, MLP and vocab over
+  'model') has the gradient of its piece, summed over the batch axes
+  alone; the qk-norm scales of a tensor-parallel attention act on the
+  rank's heads only, so their gradients are summed over 'model' too;
 - AdamW with ZeRO-1: each 'data' rank updates its slice of m, v and the
   parameter (the dim ``zero1_leaf_axes`` puts 'fsdp' on), then the slices
   are all-gathered over 'data'.
@@ -40,7 +44,9 @@ import torch
 
 from repro_torch.convert import stacked_depths
 from repro_torch.sharding import collectives as col
-from repro_torch.sharding.params import Placement, batch_axes, place, stored
+from repro_torch.sharding import tp as tpm
+from repro_torch.sharding.params import (Placement, batch_axes, place,
+                                         stored, whole_params)
 from repro_torch.sharding.partition import Rules, mesh_axes, use_rules
 from repro_torch.train.optimizer import (adamw_leaf, adamw_scalars, decays,
                                          piece_sums, zero1_leaf_axes)
@@ -97,6 +103,7 @@ class ShardedTraining:
         self.d = col.axis_index(mesh, self.fsdp)
         self.plan = place(model, mesh, rules)
         self.params = {n: stored(model, n) for n in self.plan}
+        self.partial = tpm.partial_leaves(model)
         self.zero1 = {n: zero1_split(model.cfg, n, pl, mesh, rules)
                       for n, pl in self.plan.items()}
 
@@ -122,6 +129,11 @@ class ShardedTraining:
         return {"m": mv, "v": {n: torch.zeros_like(t) for n, t in mv.items()},
                 "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
+    def whole(self) -> Dict[str, torch.Tensor]:
+        """Every parameter whole, in JAX's layout (the tensor-parallel
+        pieces gathered): what a checkpoint saves. Every rank calls it."""
+        return whole_params(self.model, self.plan)
+
     # ------------------------------------------------------------- step --
     def rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """This rank's rows of the global batch."""
@@ -142,7 +154,10 @@ class ShardedTraining:
         divide by the number of batch ranks."""
         buckets = collections.defaultdict(list)
         for n, pl in self.plan.items():
-            buckets[tuple(a for a in self.batch if a not in pl.axes())
+            axes = {a for a in self.batch if a not in pl.axes()}
+            if n in self.partial:
+                axes.add(tpm.AXIS)
+            buckets[tuple(a for a in mesh_axes(self.mesh) if a in axes)
                     ].append(n)
         out = {}
         for axes, names in buckets.items():

@@ -1,8 +1,9 @@
 """The port's multi-rank layer against the JAX package: the hierarchical
 collectives, the MapReduce mesh shuffle (JoSS policies A and B), the
-expert-parallel MoE and the sharded train step (against the port's
+expert-parallel MoE, the sharded train step (against the port's
 single-device step and JAX's sharded step), whose collectives the dry run
-reckons byte for byte.
+reckons byte for byte, tensor-parallel over 'model' for the dense family,
+and the sharded serving step with the KV cache split over 'model'.
 
 One module-scoped run starts 8 gloo ranks (tests/torch_mesh_ranks.py)
 beside one JAX process with 8 fake CPU devices (``jax.set_mesh``, as the
@@ -33,7 +34,8 @@ from repro_torch.convert import params_to_numpy  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models.moe import moe_ffn  # noqa: E402
 from repro_torch.sharding import MeshShape  # noqa: E402
-from repro_torch.train import adamw_init, make_train_step  # noqa: E402
+from repro_torch.train import (adamw_init, make_prefill_step,  # noqa: E402
+                               make_serve_step, make_train_step)
 from repro_torch.mapreduce import engine  # noqa: E402
 from repro_torch.mapreduce.jobs import EMPTY, KVBatch  # noqa: E402
 
@@ -45,7 +47,7 @@ import torch_mesh_ranks as ranks_mod  # noqa: E402
 WORLD = 8
 #: seconds for the whole group and the JAX process; past it every process
 #: is killed and the tests fail
-DEADLINE_S = 300
+DEADLINE_S = 420
 #: JAX's tolerance for the float collectives (test_multidevice.py:45)
 RTOL = 1e-6
 #: the jobs JAX's own mesh_mapreduce runs: for II (whose map reads the
@@ -66,6 +68,11 @@ NORM_RTOL = 1e-5
 #: the losses and gradient norms against JAX's step (XLA's and torch's
 #: kernels, f32)
 JAX_STEP_RTOL = 1e-5
+#: the sharded serving run's logits against the single-device port's and
+#: JAX's (f32)
+SERVE_ATOL = 1e-4
+#: the runs whose dense leaves go tensor-parallel over 'model'
+TP_RUNS = ("flat", "pod", "layers", "tp24", "tp18")
 
 JAX_PROG = textwrap.dedent("""
     import sys
@@ -153,7 +160,11 @@ JAX_PROG = textwrap.dedent("""
             n_micro=n_micro, opt=OptConfig(**dataclasses.asdict(STEP_OPT))))
         losses, norms = [], []
         with jax.set_mesh(mesh), use_rules(mesh, rules):
-            fn = jax.jit(step, in_shardings=(psh, None, None))
+            # the parameters come back placed as they went in, so the
+            # next step takes them (the compiler may pick another
+            # sharding for a replicated leaf's output)
+            fn = jax.jit(step, in_shardings=(psh, None, None),
+                         out_shardings=(psh, None, None))
             for _ in range(steps):
                 params, opt, m = fn(params, opt, batch)
                 losses.append(float(m["loss"]))
@@ -163,6 +174,40 @@ JAX_PROG = textwrap.dedent("""
         for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]:
             out[f"jstep_{run}_param_{jax.tree_util.keystr(path)}"] = (
                 np.asarray(leaf, np.float32))
+    # the sharded serving runs: JAX's prefill and serve steps jitted with
+    # the shardings of tree_shardings on the same meshes
+    from repro.train import make_prefill_step, make_serve_step
+    from torch_mesh_ranks import SERVE_RUNS, serve_model, serve_tokens
+    for run, (arch, shape, names, _, P, steps, S_max) in SERVE_RUNS.items():
+        mesh = jax.make_mesh(shape, names,
+                             axis_types=(AxisType.Auto,) * len(names))
+        model = build_model(jconfigs.get_config(arch).smoke())
+        specs = model.param_specs()
+        port = serve_model(run)
+        params = jax.tree_util.tree_map(
+            lambda a, s: jnp.asarray(a, s.dtype),
+            params_to_numpy(port.cfg, port.state_dict()), shape_tree(specs))
+        psh = tree_shardings(mesh, DEFAULT_RULES, axes_tree(specs),
+                             shape_tree(specs))
+        params = jax.device_put(params, psh)
+        toks = jnp.asarray(serve_tokens(run))
+        cache_sh = tree_shardings(mesh, DEFAULT_RULES, model.cache_axes(),
+                                  model.cache_specs(toks.shape[0], S_max))
+        with jax.set_mesh(mesh), use_rules(mesh, DEFAULT_RULES):
+            nxt, cache = jax.jit(make_prefill_step(model, cache_len=S_max),
+                                 in_shardings=(psh, None),
+                                 out_shardings=(None, cache_sh))(
+                params, {"tokens": toks})
+            serve = jax.jit(make_serve_step(model),
+                            in_shardings=(psh, cache_sh, None, None),
+                            out_shardings=(None, None, cache_sh))
+            got, logits = [np.asarray(nxt)], []
+            for t in range(P, P + steps):
+                nxt, lg, cache = serve(params, cache, nxt, t)
+                got.append(np.asarray(nxt))
+                logits.append(np.asarray(lg)[:, 0])
+        out[f"{run}_tokens"] = np.concatenate(got, axis=1)
+        out[f"{run}_logits"] = np.stack(logits, axis=1)
     np.savez(sys.argv[1], **out)
 """)
 
@@ -529,6 +574,84 @@ def test_sharded_step_collectives_equal_the_dry_run(runs, run):
             got[r][pre + "kind"], got[r][pre + "n"], got[r][pre + "calls"],
             got[r][pre + "nbytes"])}
         assert moved == want, (r, moved, want)
+
+
+@pytest.mark.parametrize("run", sorted(ranks_mod.STEP_RUNS))
+def test_sharded_step_places_the_dense_family_tensor_parallel(runs, run):
+    """The dense runs hold their attention, MLP and vocab leaves as
+    tensor-parallel pieces over 'model' (the norms stay whole); the MoE
+    family keeps storage sharding."""
+    got, _ = runs
+    leaves = set(got[0][f"step_{run}_tp_leaves"].tolist())
+    if run not in TP_RUNS:
+        assert not leaves
+        return
+    cfg = get_config(ranks_mod.STEP_RUNS[run][0]).smoke()
+    per_layer = {"attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wi",
+                 "mlp.wo"} | ({"attn.bq", "attn.bk", "attn.bv"}
+                              if cfg.qkv_bias else set())
+    want = {"embed", "lm_head"} | {f"layers.{i}.{n}" for i in
+                                   range(cfg.n_layers) for n in per_layer}
+    assert leaves == want
+
+
+def _serve_rows(got, run, key):
+    """A serving run's output over the requests: data rank di's rows
+    (the ranks of one data coordinate hold them alike)."""
+    shape = ranks_mod.SERVE_RUNS[run][1]
+    M = shape[-1]
+    for r in range(WORLD):
+        np.testing.assert_array_equal(got[r][f"{run}_{key}"],
+                                      got[r - r % M][f"{run}_{key}"])
+    return np.concatenate([got[M * di][f"{run}_{key}"]
+                           for di in range(WORLD // M)])
+
+
+def _serve_single_device(run):
+    """A serving run's tokens and decode logits on one device."""
+    _, _, _, _, P, steps, S_max = ranks_mod.SERVE_RUNS[run]
+    model = ranks_mod.serve_model(run)
+    nxt, cache = make_prefill_step(model, cache_len=S_max)(
+        {"tokens": torch.from_numpy(ranks_mod.serve_tokens(run))})
+    serve = make_serve_step(model)
+    got, logits = [nxt], []
+    for t in range(P, P + steps):
+        nxt, lg, cache = serve(cache, nxt, t)
+        got.append(nxt)
+        logits.append(lg[:, 0])
+    return torch.cat(got, 1).numpy(), torch.stack(logits, 1).numpy()
+
+
+@pytest.mark.parametrize("run", sorted(ranks_mod.SERVE_RUNS))
+def test_sharded_serve_equals_single_device_and_jax(runs, run):
+    """The prefill and 8 greedy decode steps, the cache split over
+    'model': the tokens equal the single-device port's and JAX's sharded
+    serving steps', the logits within SERVE_ATOL."""
+    got, want = runs
+    assert all(bool(got[r][f"{run}_tp"]) for r in range(WORLD))
+    toks, logits = (_serve_rows(got, run, k) for k in ("tokens", "logits"))
+    one_toks, one_logits = _serve_single_device(run)
+    np.testing.assert_array_equal(toks, one_toks)
+    np.testing.assert_array_equal(toks, want[f"{run}_tokens"])
+    np.testing.assert_allclose(logits, one_logits, rtol=0, atol=SERVE_ATOL)
+    np.testing.assert_allclose(logits, want[f"{run}_logits"], rtol=0,
+                               atol=SERVE_ATOL)
+
+
+@pytest.mark.parametrize("run", sorted(ranks_mod.SERVE_RUNS))
+def test_sharded_serve_splits_the_cache_over_model(runs, run):
+    """Each rank holds S_max/M slots of the cache; a decode step
+    exchanges the attention partials (an all-gather over 'model') and
+    sums the row-parallel products (all-reduces)."""
+    got, _ = runs
+    _, shape, names, *_, S_max = ranks_mod.SERVE_RUNS[run]
+    M = dict(zip(names, shape))["model"]
+    for r in range(WORLD):
+        assert got[r][f"{run}_slots"].tolist() == [S_max // M]
+        kinds = dict(zip(got[r][f"{run}_log_kind"].tolist(),
+                         got[r][f"{run}_log_calls"].tolist()))
+        assert kinds.get("all-gather", 0) > 0 and kinds.get(
+            "all-reduce", 0) > 0, kinds
 
 
 # ----------------------------------------------------- _partition_pack --

@@ -29,6 +29,7 @@ from repro_torch.models.moe import Experts  # noqa: E402
 from repro_torch.models.moe_ep import moe_ffn_ep  # noqa: E402
 from repro_torch.sharding import DEFAULT_RULES, hint, use_rules  # noqa: E402
 from repro_torch.sharding import collectives as col  # noqa: E402
+from repro_torch.serve.sharded import ShardedServing  # noqa: E402
 from repro_torch.train import OptConfig, TrainConfig  # noqa: E402
 from repro_torch.train.sharded import ShardedTraining  # noqa: E402
 
@@ -66,7 +67,21 @@ STEP_RUNS = {
     "fsdp": ("dbrx-132b", (2, 2, 2), ("pod", "data", "model"), 1, 2,
              (4, 32), dict(n_experts=8, moe_topk=2, capacity_factor=8.0),
              dict(embed="data", expert_in="data")),
+    # tensor parallelism over 'model' 4: a head (and half a kv head) a
+    # rank, the kv heads gathered; and over 'model' 8, where the 4 heads
+    # do not divide: head groups of 2 ranks, q gathered (JAX's fallback)
+    "tp24": ("qwen3-4b", (2, 4), ("data", "model"), 2, 3, (8, 32), {}),
+    "tp18": ("qwen3-4b", (1, 8), ("data", "model"), 2, 3, (8, 32), {}),
 }
+#: the sharded serving runs: name -> (arch, mesh shape, axis names,
+#: requests, prompt length, decode steps, cache slots S_max), f32; on
+#: (2, 4) a rank's kv heads are gathered (G 2 < M 4) and the cache's
+#: slots sliced, on (4, 2) a rank's own kv head goes to the other rank's
+#: slots (an all_to_all)
+SERVE_RUNS = {"serve24": ("qwen3-4b", (2, 4), ("data", "model"), 4, 20, 8,
+                          32),
+              "serve42": ("qwen3-4b", (4, 2), ("data", "model"), 4, 20, 8,
+                          32)}
 STEP_OPT = OptConfig(lr=1e-3, warmup_steps=0)
 #: the seed of the runs' parameters (torch.Generator on the CPU)
 STEP_SEED = 0
@@ -193,12 +208,51 @@ def run_sharded_steps(rank, out):
                                                  for k in keys])
         out[f"step_{run}_log_nbytes"] = np.array([log["nbytes"][k]
                                                   for k in keys])
-        with torch.no_grad():
-            for name in sharded.plan:
-                owner, _, leaf = name.rpartition(".")
-                mod = model.get_submodule(owner) if owner else model
-                out[f"step_{run}_param_{name}"] = getattr(mod,
-                                                          leaf).numpy()
+        out[f"step_{run}_tp_leaves"] = np.array(sorted(
+            n for n, pl in sharded.plan.items() if pl.tp is not None))
+        for name, t in sharded.whole().items():
+            out[f"step_{run}_param_{name}"] = t.numpy()
+
+
+def serve_model(run):
+    """The serving run's model with its seeded parameters, f32, on the
+    CPU."""
+    model = build_model(get_config(SERVE_RUNS[run][0]).smoke(), device="cpu")
+    model.init_params(torch.Generator().manual_seed(STEP_SEED + 1))
+    return model
+
+
+def serve_tokens(run):
+    arch, _, _, N, P = SERVE_RUNS[run][:5]
+    vocab = get_config(arch).smoke().vocab
+    return np.random.RandomState(1).randint(0, vocab, (N, P)).astype(
+        np.int32)
+
+
+def run_sharded_serve(rank, out):
+    """Each SERVE_RUNS run on its mesh: the prefill, then greedy decode
+    steps on the rank's rows; its tokens, each step's whole logits
+    (gathered over 'model'), the cache slots it holds and the
+    collectives of one decode step."""
+    for run, (_, shape, names, N, P, steps, S_max) in SERVE_RUNS.items():
+        mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+        serving = ShardedServing(serve_model(run), mesh, DEFAULT_RULES)
+        toks = serving.rows(torch.from_numpy(serve_tokens(run)))
+        nxt, cache = serving.prefill({"tokens": toks}, cache_len=S_max)
+        got, logits = [nxt], []
+        for t in range(P, P + steps):
+            col.LOG.reset()
+            nxt, parts, cache = serving.decode(cache, nxt, t)
+            log = col.LOG.snapshot()
+            logits.append(serving.logits(parts)[:, 0])
+            got.append(nxt)
+        out[f"{run}_tokens"] = torch.cat(got, dim=1).numpy()
+        out[f"{run}_logits"] = torch.stack(logits, dim=1).numpy()
+        out[f"{run}_slots"] = np.array([c.k.shape[2] for c in cache.parts])
+        out[f"{run}_tp"] = np.array(serving.tp is not None)
+        keys = sorted(log["calls"])
+        out[f"{run}_log_kind"] = np.array([k for k, _ in keys])
+        out[f"{run}_log_calls"] = np.array([log["calls"][k] for k in keys])
 
 
 def mr_shards():
@@ -265,6 +319,7 @@ def run(rank, out):
     out["host_mesh_names"] = np.array(host.mesh_dim_names)
     run_moe_ep(rank, out)
     run_sharded_steps(rank, out)
+    run_sharded_serve(rank, out)
 
 
 def main():
