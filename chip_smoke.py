@@ -126,6 +126,7 @@ Each phase prints JSON lines; the run ends with the nvidia-smi line, the
 kernels line and, last, the device line. Imports nothing of JAX or of the
 JAX package.
 """
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -174,13 +175,16 @@ from repro_torch.mapreduce.jobs import EMPTY  # noqa: E402
 from repro_torch.models import (build_model, prefix_len,  # noqa: E402
                                 side_inputs)
 from repro_torch.models import common as cm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.recurrence import gla_chunked  # noqa: E402
 from repro_torch.obs import TelemetryConfig  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
 from repro_torch.models.moe import Experts, moe_ffn  # noqa: E402
-from repro_torch.models.moe_ep import moe_ffn_ep_virtual  # noqa: E402
+from repro_torch.models.moe_ep import (moe_ffn_ep_virtual,  # noqa: E402
+                                       moe_ffn_held)
+from repro_torch.models.rwkv6 import TimeMix  # noqa: E402
 from repro_torch.models.transformer import (Attention,  # noqa: E402
-                                            tp_argmax)
+                                            kv_index, tp_argmax)
 from repro_torch.sharding import DEFAULT_RULES  # noqa: E402
 from repro_torch.sharding import collectives as col  # noqa: E402
 from repro_torch.sharding import tp as tpm  # noqa: E402
@@ -195,6 +199,9 @@ from repro_torch.sweep import lockstep  # noqa: E402
 from repro_torch.sweep import vmap_fill as vf  # noqa: E402
 from repro_torch.train import (OptConfig, TrainConfig, adamw_init,  # noqa: E402
                                init_train_state, make_train_step)
+from repro_torch.train.optimizer import (adamw_leaf,  # noqa: E402
+                                         adamw_scalars, decays,
+                                         global_norm)
 from repro_torch.train.step import accumulate_grads  # noqa: E402
 from repro_torch.train.checkpoint import AsyncCheckpointer  # noqa: E402
 from repro_torch.train.sharded import ShardedTraining  # noqa: E402
@@ -1514,6 +1521,31 @@ def flash_cases():
                       ("tp_prefill", *TP_SERVE[:2])):
         cases += [(tag, B, S, S, TH, TG, qwen.hdim, True, 0, ar(S), ar(S),
                    dt, None) for dt in (bf16, f32)]
+    # the other families' rank shapes in the tp phase (TP_FAMILIES, its
+    # forward and training rows at (B, S)): a rank's heads, its kv heads
+    # or every kv head where they do not divide (kv_index), hymba's 25
+    # heads on every rank (gcd(25, 4) = 1), whisper's encoder and
+    # cross-attention non-causal over its 1500 encoder positions
+    for arch, (cuts, (B, S), _, frames) in TP_FAMILIES.items():
+        c = get_config(arch)
+        if c.family == "ssm":
+            continue
+        T = math.gcd(c.n_heads, TP_RANKS)
+        Hl = c.n_heads // T
+        Gl = (c.n_kv_heads // TP_RANKS if T == TP_RANKS
+              and c.n_kv_heads % TP_RANKS == 0 else len(kv_index(c, T, 0)))
+        Sx = S + prefix_len(c)
+        for dt in (bf16, f32):
+            if c.family == "encdec":
+                E = frames // 2
+                cases += [
+                    ("tp_whisper_encoder", B, E, E, Hl, Gl, c.hdim, False,
+                     0, ar(E), ar(E), dt, None),
+                    ("tp_whisper_cross", B, S, E, Hl, Gl, c.hdim, False, 0,
+                     zeros(S), zeros(E), dt, None)]
+            cases.append((f"tp_{arch.split('-')[0]}", B, Sx, Sx, Hl, Gl,
+                          c.hdim, True, c.sliding_window, ar(Sx), ar(Sx),
+                          dt, None))
     # the simt kernel (the first design) at the bf16 serving shapes, as
     # phase 6 times it
     cases += [c[:-1] + ("simt",) for c in cases
@@ -1566,7 +1598,15 @@ def gla_cases():
         # K = 8 and a single short chunk (the tc kernel pads K to 16)
         ("k8_v16_bf16", 2, 50, 3, 8, 16, True, True, None, bf16),
         ("one_chunk_bf16", 3, 20, 2, 16, 32, True, True, None, bf16),
-    ]
+    ] + [
+        # the tp phase's rank shapes (TP_FAMILIES): rwkv6-7b's 64 / 4
+        # heads a rank; hymba-1.5b's 25 SSM heads on every rank
+        (name, B, S, H, K, 64, u, False, None, dt)
+        for name, (B, S), H, K, u in (
+            ("tp_rwkv6", TP_FAMILIES["rwkv6-7b"][1], 64 // TP_RANKS, 64,
+             True),
+            ("tp_hymba", TP_FAMILIES["hymba-1.5b"][1], 25, 16, False))
+        for dt in (bf16, f32)]
 
 
 def gla_inputs(B, T, H, K, V, use_u, init, logw_const, dt, gen):
@@ -2969,11 +3009,11 @@ class SumF32TP(tpm.VirtualTP):
 
 class DroppedWoTP(tpm.VirtualTP):
     """A planted fault the bf16 gate must reject: the last rank's part of
-    every attention's row-parallel output dropped."""
+    every attention's (rwkv6: time-mix's) row-parallel output dropped."""
 
     def pieces(self, module, leaf):
         out = super().pieces(module, leaf)
-        if leaf == "wo" and isinstance(module, Attention):
+        if leaf == "wo" and isinstance(module, (Attention, TimeMix)):
             out[-1] = torch.zeros_like(out[-1])
         return out
 
@@ -3062,7 +3102,7 @@ def tp_forward(cfg, p0, toks, tally):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
     counts = flash_counts()
-    tally("forward", counts)
+    tally("forward", SHARDED_ARCH, counts[0], 0, counts[1], counts[2])
     err, rel, ok = logits_close(got, ref, cfg)
     B, S = TP_SHAPE
     want = {f"{fa.choose_variant(dt, S)}/{B}/{S}/{S}/{H}/{G}/{D}": L * M}
@@ -3092,7 +3132,7 @@ def tp_train(cfg, p0, toks, tally):
                                                              None)
     got, got_l, got_g, got_s, got_c, got_gr = tp_steps(cfg, p0, toks,
                                                        tpm.VirtualTP)
-    tally("train", got_c)
+    tally("train", SHARDED_ARCH, got_c[0], 0, got_c[1], got_c[2])
 
     def grad_rel_err(grads):
         return math.sqrt(
@@ -3216,7 +3256,7 @@ def tp_decode(cfg, p0, ptoks, tally):
             decided.append(int(sure.sum()))
             equal.append(bool((tok[:, 0] == feed[i + 1][:, 0])[sure].all()))
     counts = flash_counts()
-    tally("serve", counts)
+    tally("serve", SHARDED_ARCH, counts[0], 0, counts[1], counts[2])
     C = TP_SLOTS // M
     want = {f"{fa.choose_variant(dt, P)}/{N}/{P}/{P}/{H}/{G}/{D}": L * M,
             f"partials/{N}/1/{C}/{cfg.n_heads}/{cfg.n_kv_heads}/{D}":
@@ -3284,6 +3324,44 @@ def tp_kernel_checks(cfg):
              atol=atol, rtol=rtol)
         check(ok and out.dtype == dt, f"flash_decode_merge disagrees with "
                                       f"its plain version: {tag}")
+
+
+def tp_family_kernel_checks():
+    """flash_decode_partials against its plain version at each family's
+    decode rank shape (TP_FAMILIES: slots / TP_RANKS, every head; hymba's
+    window; whisper's cross K/V, non-causal over 1500 / TP_RANKS
+    positions), bf16 and f32, at the n_split the wrapper chooses."""
+    gen = torch.Generator(device=DEV).manual_seed(59)
+    zero = torch.zeros((1,), dtype=torch.int32, device=DEV)
+    for arch, (_, _, (N, _, _, slots), frames) in TP_FAMILIES.items():
+        c = get_config(arch)
+        if not slots:
+            continue
+        C = slots // TP_RANKS
+        shapes = [("self", C, True, c.sliding_window, ar(1, slots - 1),
+                   ar(C, slots - C))]
+        if frames:
+            X = frames // 2 // TP_RANKS
+            shapes.append(("cross", X, False, 0, zero, zero.repeat(X)))
+        H, G, D = c.n_heads, c.n_kv_heads, c.hdim
+        for dt in (torch.bfloat16, torch.float32):
+            for kind, Sk, causal, window, qpos, kpos in shapes:
+                q = rand((N, 1, H, D), dt, gen)
+                k, v = (rand((N, Sk, G, D), dt, gen) for _ in range(2))
+                kw = dict(causal=causal, window=window, qpos=qpos, kpos=kpos)
+                ref = fa.flash_decode_partials_ref(q, k, v, **kw)
+                out = fa.flash_decode_partials(q, k, v, **kw)
+                atol, rtol = TOL[torch.float32]
+                err, ok = within(out, ref, atol, rtol)
+                tag = (f"tp_partials_{arch.split('-')[0]}_{kind}/"
+                       f"{str(dt).split('.')[-1]}")
+                emit(phase="tp", check="kernel", kernel="flash_attention",
+                     case=tag, step="partials", causal=causal,
+                     window=window, shape=[N, 1, Sk, H, G, D],
+                     max_abs_err=err, atol=atol, rtol=rtol)
+                check(ok and bool(torch.isfinite(out).all()),
+                      f"flash_decode_partials disagrees with its plain "
+                      f"version: {tag}")
 
 
 def tp_times(cfg, P):
@@ -3359,13 +3437,453 @@ def tp_times(cfg, P):
     return out
 
 
+#: the other families' runs as TP_RANKS virtual ranks, at full width and
+#: cut depth: arch -> (cuts, (B, S) of the forward and the training,
+#: (requests, prompt, decode steps, cache slots) of the serving, encdec
+#: frames). Each forward in f32 (TF32 off), held within
+#: TP_FAMILY_F32_RTOL of the unsharded model's largest |logit|, and in
+#: bf16 (WIRING_BF16_RTOL in norm); the bf16 training's 3 steps on f32
+#: master weights under TP_FAMILY_PARAM_RTOL and TP_BF16_NORM_RTOL with
+#: the planted fault rejected (TP_FAMILY_TCFG); the prefill and
+#: teacher-forced decode over the split caches in f32 (the logits within
+#: WIRING_ATOL) and in bf16 (WIRING_BF16_RTOL in norm), tokens equal
+#: wherever decided. In bf16 the ranks' sums move a MoE router's input by
+#: a bf16 ulp, which flips a token's expert where two are near (arctic-480b
+#: on an H100: one decided token of 109 and a step's logits 10% off in
+#: norm): a MoE row is decided, and its logits compared, only where the
+#: unsharded run's router gap between its k-th and (k+1)-th expert
+#: exceeds TP_ROUTER_MARGIN at every MoE layer. The cache's slots split 40
+#: a rank (internvl2-26b: 104, its 256 patch tokens ahead of the prompt),
+#: ragged against the kernels' 64-key tile; whisper-medium's 1500 cross
+#: K/V positions 375 a rank
+TP_FAMILIES = {
+    "dbrx-132b": (dict(n_layers=1), (2, 256), (4, 128, 32, 160), None),
+    "arctic-480b": (dict(n_layers=1, n_experts=32), (2, 256),
+                    (4, 128, 32, 160), None),
+    "internvl2-26b": (dict(n_layers=2), (2, 256), (4, 128, 32, 416), None),
+    "whisper-medium": (dict(n_layers=2, encoder_layers=2), (2, 256),
+                       (4, 128, 32, 160), 3000),
+    "rwkv6-7b": (dict(n_layers=2), (2, 256), (4, 128, 32, None), None),
+    "hymba-1.5b": (dict(n_layers=2), (2, 256), (4, 128, 32, 160), None),
+}
+#: the families' f32 logits against the unsharded model's, TF32 off: the
+#: largest error over the unsharded run's largest |logit|, so the bound
+#: does not move with a family's logit scale (rwkv6-7b's logits reach
+#: several times whisper-medium's, and its absolute error with them).
+#: Set between the sound f32 readings and the bf16 runs' (the control
+#: beside them in the forward line; PERF.md section 6)
+TP_FAMILY_F32_RTOL = 1e-4
+#: the families' 3 training steps at lr 1e-5 (tests/test_torch_train.py's
+#: one-step rate): at TRAIN_OPT's 1e-3, and still at 1e-4, the one- and
+#: two-layer models memorise the batch within 3 steps (on an H100,
+#: rwkv6-7b's loss 11.6 -> 0.002) and the unsharded run's own n_micro
+#: control parts from it. The model computes in bf16 and each update
+#: lands on an f32 master copy of the parameters (``master_steps``): an
+#: lr-1e-5 step is under half a bf16 ulp of most weights, so on bf16
+#: parameters alone the change would read their rounding, not the
+#: update. AdamW's moments in bf16 and one microbatch on both sides (the
+#: moe family's f32 moments or accumulators do not fit beside the master
+#: copy); the unsharded control (n_micro 2, the f32 sums in another
+#: order) runs where it fits, for all but the moe family
+TP_FAMILY_LR = 1e-5
+TP_FAMILY_TCFG = TrainConfig(n_micro=1, opt=dataclasses.replace(
+    TRAIN_OPT, lr=TP_FAMILY_LR, state_dtype="bfloat16"))
+#: the families' 3 steps' change (||tp - ref|| over the unsharded change,
+#: the master weights' change from p0), set between the sound runs'
+#: readings and the planted faults' with room on both sides (NVIDIA H100
+#: 80GB HBM3: sound 0.047-0.108, the n_micro controls 0.014-0.055, the
+#: faults 0.885-1.157)
+TP_FAMILY_PARAM_RTOL = 0.3
+#: the leaves left out of the gated gradient norms, by arch: rwkv6-7b's
+#: layer-0 ``u``, whose gradient at p0 (~1.8e3) is the norm's whole and
+#: moves 11.6% under the ranks' bf16 rounding (its unsharded n_micro
+#: control: 1.2%); the norms with it are read beside them. Without it
+#: (NVIDIA H100 80GB HBM3): sound 0.016, control 0.012, fault 0.117
+TP_FAMILY_NORM_OUT = {"rwkv6-7b": ("layers.0.att.u",)}
+#: a MoE row is decided at a decode step where, at every MoE layer, the
+#: unsharded run's router log-probability of its k-th expert exceeds its
+#: (k+1)-th's by this much: above twice the largest router
+#: log-probability difference between the two runs, which the decode line
+#: reads beside it (NVIDIA H100 80GB HBM3, bf16: 0.0129 dbrx-132b, 0.0165
+#: arctic-480b; f32 ~5e-6)
+TP_ROUTER_MARGIN = 5e-2
+
+
+def launch_counts():
+    """(flash launches, gla_scan launches, flash launches by shape) since
+    the last reset_counts."""
+    return (fa.flash_attention.launches, gs.gla_scan.launches,
+            flash_counts()[2])
+
+
+def family_batch(cfg, toks, seed, frames):
+    return with_side(cfg, {"tokens": toks}, seed, n_frames=frames)
+
+
+def tp_family_forward(arch, cfg, p0, batch, tally):
+    """The forward of the unsharded model and of the virtual ranks, in
+    cfg's type; for the moe family in f32, a decode step's MoE FFN on
+    each rank's E/M experts against the dense dispatch, bit for bit."""
+    M = TP_RANKS
+    f32 = cfg.tdtype == torch.float32
+    L, attn = cfg.n_layers, attn_calls(cfg)[0]
+    gla = cfg.family in ("ssm", "hybrid")
+    with torch.no_grad():
+        ref = tp_model(cfg, p0).forward(batch)
+        torch.cuda.empty_cache()
+        model = tp_model(cfg, p0, tpm.VirtualTP)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = model.forward(batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()
+        held = {}
+        if f32 and cfg.n_experts:
+            gen = torch.Generator(device=DEV).manual_seed(61)
+            h = rand((TP_FAMILIES[arch][2][0], 1, cfg.d_model), cfg.tdtype,
+                     gen)
+            experts = model.layers[0].moe
+            out, _, dropped = moe_ffn_held(cfg, experts, h, M)
+            held = dict(held_bit_equal=bool(torch.equal(
+                out, moe_ffn(cfg, experts, h)[0])), held_dropped=dropped,
+                rank_experts=cfg.n_experts // M)
+    tally("forward", arch, counts[0], counts[1], {}, counts[2])
+    err, rel = logits_close(got, ref, cfg)[:2]
+    scale = ref[..., :cfg.vocab].float().abs().max().item()
+    ok = err / scale <= TP_FAMILY_F32_RTOL if f32 else rel <= WIRING_BF16_RTOL
+    want = (attn * M, L * M if gla else 0)
+    B, S = batch["tokens"].shape
+    emit(phase="tp", check="forward", arch=arch, ranks=M, n_layers=L,
+         batch=B, seq_len=S, dtype=cfg.dtype, rank_heads=cfg.n_heads // M,
+         max_abs_err=err, max_abs_logit=scale, scaled_err=err / scale,
+         scaled_rtol=TP_FAMILY_F32_RTOL if f32 else None, rel_err=rel,
+         rel_tol=None if f32 else WIRING_BF16_RTOL, within=ok, **held,
+         seconds=secs, launches=counts[0], gla_launches=counts[1],
+         expected_launches=list(want), launches_by_shape=counts[2],
+         reduced=reduced(arch, cfg))
+    check(ok, f"tp forward {arch} ({cfg.dtype}): logits differ from the "
+              f"unsharded model's by {err} of {scale} (relative {rel})")
+    check(counts[:2] == want, f"tp forward {arch}: launches {counts[:2]}, "
+                              f"expected {want}")
+    check(not held or held["held_bit_equal"],
+          f"tp forward {arch}: the MoE FFN on the ranks' held experts is "
+          f"not the dense dispatch's bits")
+    del model, ref, got
+    torch.cuda.empty_cache()
+
+
+def pinned(p0):
+    """p0's tensors copied to pinned host memory (fast to load back)."""
+    return {n: torch.empty(t.shape, dtype=t.dtype,
+                           pin_memory=True).copy_(t) for n, t in p0.items()}
+
+
+def master_steps(cfg, p0, batch, group, tcfg, out=()):
+    """SHARDED_STEPS steps from p0 (on the host) on the unsharded model
+    (``group`` None) or on TP_RANKS virtual ranks of ``group``, as
+    make_train_step runs them (accumulate_grads, then global_norm,
+    adamw_scalars and adamw_leaf on every leaf), each update landing on
+    an f32 master copy of the parameters that the model then takes
+    rounded to its type: (the master weights' change from p0 by name,
+    f32; losses; gradient norms; the norms without the leaves ``out``;
+    step seconds; the share of the model's elements that moved)."""
+    model = tp_model(cfg, p0, group)
+    params = dict(model.named_parameters())
+    master = {n: p.detach().float() for n, p in params.items()}
+    state = adamw_init(params, tcfg.opt.state_dtype)
+    opt = tcfg.opt
+    losses, norms, kept, secs = [], [], [], []
+    for _ in range(SHARDED_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, grads = accumulate_grads(model, params, tcfg, batch)
+        gnorm = global_norm(grads)
+        sc = adamw_scalars(opt, state["step"], gnorm)
+        with torch.no_grad():
+            for n, p in params.items():
+                adamw_leaf(opt, opt.weight_decay > 0 and decays(n, p),
+                           master[n], grads[n], state["m"][n],
+                           state["v"][n], sc)
+                p.copy_(master[n])
+        state["step"] = sc["step"]
+        kept.append(float(global_norm({n: g for n, g in grads.items()
+                                       if n not in out})))
+        del grads
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(float(gnorm))
+    del state
+    n_moved = 0
+    with torch.no_grad():
+        for n, m in master.items():
+            p = p0[n].to(DEV)
+            n_moved += int(torch.count_nonzero(params[n] != p))
+            m.sub_(p.float())
+    share = n_moved / sum(m.numel() for m in master.values())
+    del model, params
+    torch.cuda.empty_cache()
+    return master, losses, norms, kept, secs, share
+
+
+def delta_rel(got, want):
+    """||got - want|| / ||want|| over every leaf of two changes."""
+    num = sum(float(torch.sum(torch.square(got[n] - want[n].float())))
+              for n in want)
+    den = sum(float(torch.sum(torch.square(want[n].float())))
+              for n in want)
+    return math.sqrt(num / den)
+
+
+def tp_family_train(arch, cfg, p0, batch, tally):
+    """3 bf16 steps on f32 master weights of the unsharded model and of
+    the virtual ranks, of the planted fault, and of the unsharded control
+    where it fits, from the same weights (p0 on the host)."""
+    M, tcfg = TP_RANKS, TP_FAMILY_TCFG
+    out = TP_FAMILY_NORM_OUT.get(arch, ())
+    want, want_l, want_g, want_k, want_s, want_moved = master_steps(
+        cfg, p0, batch, None, tcfg, out)
+    # the unsharded change kept in bf16 (its own scale, ~0.4% an element)
+    want = {n: d.to(torch.bfloat16) for n, d in want.items()}
+    reset_counts()
+    got, got_l, got_g, got_k, got_s, got_moved = master_steps(
+        cfg, p0, batch, tpm.VirtualTP, tcfg, out)
+    counts = launch_counts()
+    tally("train", arch, counts[0], counts[1], {}, counts[2])
+    rel = delta_rel(got, want)
+    del got
+    torch.cuda.empty_cache()
+    norm_err = norm_rel(got_k, want_k)
+    loss_err = abs(got_l[0] / want_l[0] - 1)
+    x_p, _, _, x_k, _, _ = master_steps(cfg, p0, batch, DroppedWoTP, tcfg,
+                                        out)
+    fault_rel, fault_norm = delta_rel(x_p, want), norm_rel(x_k, want_k)
+    del x_p
+    torch.cuda.empty_cache()
+    control = {}
+    if not cfg.n_experts:
+        c_p, _, c_g, c_k, _, _ = master_steps(
+            cfg, p0, batch, None, dataclasses.replace(tcfg, n_micro=2), out)
+        control = dict(control_param_rel_err=delta_rel(c_p, want),
+                       control_grad_norm_err=norm_rel(c_k, want_k),
+                       control_whole_grad_norm_err=norm_rel(c_g, want_g))
+        del c_p
+    del want
+    torch.cuda.empty_cache()
+
+    def holds(param_err, grad_norm_err):
+        return (param_err <= TP_FAMILY_PARAM_RTOL
+                and grad_norm_err <= TP_BF16_NORM_RTOL)
+
+    ok = loss_err <= TP_BF16_LOSS_RTOL and holds(rel, norm_err)
+    rejected = not holds(fault_rel, fault_norm)
+    steps = 2 * tcfg.n_micro * SHARDED_STEPS * M
+    want_n = (attn_calls(cfg)[0] * steps,
+              cfg.n_layers * steps if cfg.family in ("ssm", "hybrid") else 0)
+    B, S = batch["tokens"].shape
+    emit(phase="tp", check="train", arch=arch, ranks=M, n_layers=cfg.n_layers,
+         batch=B, seq_len=S, n_micro=tcfg.n_micro, steps=SHARDED_STEPS,
+         dtype=cfg.dtype, master_dtype="float32",
+         opt_state_dtype=tcfg.opt.state_dtype,
+         param_rel_err=rel, param_rtol=TP_FAMILY_PARAM_RTOL,
+         moved_share=got_moved, unsharded_moved_share=want_moved,
+         grad_norm_err=norm_err, norm_leaves_out=list(out),
+         whole_grad_norm_err=norm_rel(got_g, want_g),
+         norm_rtol=TP_BF16_NORM_RTOL,
+         first_loss_err=loss_err, loss_rtol=TP_BF16_LOSS_RTOL,
+         losses=got_l, unsharded_losses=want_l, grad_norms=got_g,
+         unsharded_grad_norms=want_g, fault_param_rel_err=fault_rel,
+         fault_grad_norm_err=fault_norm, **control, lr=tcfg.opt.lr,
+         fault_rejected=rejected, within=ok, step_seconds=got_s,
+         unsharded_step_seconds=want_s, launches=counts[0],
+         gla_launches=counts[1], expected_launches=list(want_n),
+         launches_by_shape=counts[2], reduced=reduced(arch, cfg))
+    check(ok, f"tp train {arch}: parameters {rel}, gradient norms "
+              f"{norm_err}, losses {loss_err} off the unsharded steps'")
+    check(rejected, f"tp train {arch}: the gate passes a planted fault: "
+                    f"parameters {fault_rel}, gradient norms {fault_norm}")
+    check(counts[:2] == want_n, f"tp train {arch}: launches {counts[:2]}, "
+                                f"expected {want_n}")
+
+
+@contextlib.contextmanager
+def router_log_probs(out):
+    """Every MoE router call made inside, its (T, E) log-probabilities
+    appended to ``out`` (the MoE FFNs route through models.moe.route)."""
+    plain = moe_mod.route_probs
+
+    def recorded(cfg, router, xt):
+        probs, gates, topi = plain(cfg, router, xt)
+        out.append(torch.log(probs))
+        return probs, gates, topi
+
+    moe_mod.route_probs = recorded
+    try:
+        yield
+    finally:
+        moe_mod.route_probs = plain
+
+
+def router_sure(calls, k):
+    """(B,) whether every call's gap between a row's k-th and (k+1)-th
+    largest router log-probability exceeds TP_ROUTER_MARGIN."""
+    sure = None
+    for lp in calls:
+        top = lp.topk(k + 1, dim=-1).values
+        s = (top[:, k - 1] - top[:, k]) > TP_ROUTER_MARGIN
+        sure = s if sure is None else sure & s
+    return sure
+
+
+def tp_family_decode(arch, cfg, p0, batch, tally):
+    """The unsharded run's prefill and greedy decode, then the same
+    prompt and tokens through the virtual ranks' split caches, in cfg's
+    type. A MoE row is compared at a step only where its routing is sure
+    (``router_sure``); the step's router calls of the two runs are held
+    side by side (one a MoE layer each)."""
+    M = TP_RANKS
+    N, P, GEN, slots = TP_FAMILIES[arch][2]
+    off = prefix_len(cfg)
+    atol, rtol = TOL[cfg.tdtype]
+    moe = bool(cfg.n_experts)
+    with torch.no_grad():
+        model = tp_model(cfg, p0)
+        pre, cache = model.prefill(batch, cache_len=slots)
+        feed = [pre[:, -1:].argmax(dim=-1)]
+        ref_steps, ref_routes = [], []
+        for t in range(P, P + GEN):
+            calls = []
+            with router_log_probs(calls):
+                lg, cache = model.decode_step(cache, feed[-1], off + t)
+            ref_steps.append(lg[:, 0])
+            ref_routes.append(calls)
+            feed.append(lg[:, -1:].argmax(dim=-1))
+        del model, cache
+        torch.cuda.empty_cache()
+        model = tp_model(cfg, p0, tpm.VirtualTP)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        parts, cache = model.prefill_parts(batch, slots)
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        held = {f: [tuple(getattr(c, f).shape[2:3]) for c in cache.parts]
+                for f in ("k", "xk", "state", "ssm")
+                if hasattr(cache.parts[0], f)}
+        pre_err, pre_rel, pre_ok = logits_close(torch.cat(parts, dim=-1),
+                                                pre, cfg)
+        del pre, parts
+        rels, oks, equal, decided, step_s = [], [], [], [], []
+        unsure, route_diff = [], 0.0
+        for i, t in enumerate(range(P, P + GEN)):
+            calls = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with router_log_probs(calls):
+                parts, cache = model.decode_split(cache, feed[i], off + t)
+            tok = tp_argmax(model.tp, [x[:, -1:] for x in parts])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            lg, ref = torch.cat(parts, dim=-1)[:, 0], ref_steps[i]
+            rows = torch.ones(ref.shape[0], dtype=torch.bool,
+                              device=ref.device)
+            if moe:
+                check(len(calls) == len(ref_routes[i]) == cfg.n_layers,
+                      f"tp decode {arch}: {len(calls)} and "
+                      f"{len(ref_routes[i])} router calls at a step")
+                route_diff = max(route_diff, max(
+                    float((a - b).abs().max())
+                    for a, b in zip(calls, ref_routes[i])))
+                rows = router_sure(ref_routes[i], cfg.moe_topk)
+                unsure.append(int((~rows).sum()))
+            _, rel, ok = (logits_close(lg[rows], ref[rows], cfg)
+                          if rows.any() else (0.0, 0.0, True))
+            top = ref.float().topk(2, dim=-1).values
+            sure = ((top[:, 0] - top[:, 1]) > atol + rtol * top[:, 0].abs()
+                    ) & rows
+            rels.append(rel)
+            oks.append(ok)
+            decided.append(int(sure.sum()))
+            equal.append(bool((tok[:, 0] == feed[i + 1][:, 0])[sure].all()))
+        counts = launch_counts()
+        del model, cache
+    torch.cuda.empty_cache()
+    tally("serve", arch, counts[0], counts[1], {}, counts[2])
+    L = cfg.n_layers
+    pre_calls, step_calls = attn_calls(cfg)
+    want = (pre_calls * M + GEN * step_calls * (M + 1),
+            L * M if cfg.family in ("ssm", "hybrid") else 0)
+    H, hl = cfg.n_heads, cfg.n_heads // math.gcd(cfg.n_heads, M)
+    want_held = {"k": [((slots or 0) // M,)] * M,
+                 "xk": [((TP_FAMILIES[arch][3] or 0) // 2 // M,)] * M,
+                 "state": [(hl,)] * M, "ssm": [(hl,)] * M}
+    want_held = {f: v for f, v in want_held.items() if f in held}
+    route = (dict(router_unsure_rows=unsure, router_margin=TP_ROUTER_MARGIN,
+                  router_max_abs_diff=route_diff) if moe else {})
+    emit(phase="tp", check="decode", arch=arch, ranks=M, n_layers=L,
+         requests=N, prompt_len=P, steps=GEN, slots=slots, rank_held=held,
+         dtype=cfg.dtype, prefill_max_abs_err=pre_err,
+         prefill_rel_err=pre_rel, prefill_within=pre_ok,
+         max_rel_err=max(rels), step_within=oks, tokens_equal=equal,
+         decided_rows=decided, margin_tol=[atol, rtol], **route,
+         **tol_fields(cfg), prefill_seconds=pre_s, step_seconds=step_s,
+         launches=counts[0], gla_launches=counts[1],
+         expected_launches=list(want), launches_by_shape=counts[2],
+         reduced=reduced(arch, cfg) + ["teacher-forced tokens"])
+    check(held == want_held, f"tp decode {arch}: ranks hold {held}, "
+                             f"expected {want_held} (of {H} heads)")
+    check(pre_ok and all(oks), f"tp decode {arch} ({cfg.dtype}): logits "
+                               f"differ from the unsharded run's by "
+                               f"{max(rels)} (prefill {pre_rel})")
+    check(all(equal), f"tp decode {arch} ({cfg.dtype}): greedy tokens "
+                      f"differ where the margin is sure: {equal}")
+    check(counts[:2] == want, f"tp decode {arch}: launches {counts[:2]}, "
+                              f"expected {want}")
+
+
+def tp_family(arch, tally):
+    """One family's run: its weights drawn once (bf16), the forward in
+    f32 and bf16, the bf16 training (the weights on the host beside it),
+    the decode in f32 and bf16."""
+    cuts, (B, S), (N, P, _, _), frames = TP_FAMILIES[arch]
+    cfg = get_config(arch).scaled(**cuts)
+    model = build_model(cfg, device=DEV)
+    model.init_params(torch.Generator(device=DEV).manual_seed(71))
+    p0 = {n: t.detach().clone() for n, t in model.state_dict().items()}
+    del model
+    gen = torch.Generator(device=DEV).manual_seed(72)
+    toks = torch.randint(0, cfg.vocab, (B, S), device=DEV, generator=gen)
+    ptoks = torch.randint(0, cfg.vocab, (N, P), device=DEV, generator=gen)
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.scaled(dtype=dtype)
+        p = {n: t.to(c.tdtype) for n, t in p0.items()}
+        tp_family_forward(arch, c, p, family_batch(c, toks, 73, frames),
+                          tally)
+        del p
+        torch.cuda.empty_cache()
+    host = pinned(p0)
+    del p0
+    torch.cuda.empty_cache()
+    tp_family_train(arch, cfg, host, family_batch(cfg, toks, 73, frames),
+                    tally)
+    for dtype in ("float32", "bfloat16"):
+        c = cfg.scaled(dtype=dtype)
+        p = {n: t.to(DEV, c.tdtype) for n, t in host.items()}
+        tp_family_decode(arch, c, p, family_batch(c, ptoks, 74, frames),
+                         tally)
+        del p
+        torch.cuda.empty_cache()
+
+
 def phase_tp():
     """Forward, training and teacher-forced decode of TP_RANKS virtual
     'model' ranks against the unsharded model from the same weights, in
-    each of TP_DTYPES; the two-step decode kernel against its plain
-    versions; the per-rank calls timed. Returns the flash launches of the
-    tensor-parallel runs (the main path), by variant and by shape, and
-    the times."""
+    each of TP_DTYPES, then each of TP_FAMILIES; the two-step decode
+    kernel against its plain versions; the per-rank calls timed. Returns
+    the launches of the tensor-parallel runs (the main path), flash and
+    gla_scan by run, flash by variant and by shape, and the times."""
     t_start = time.perf_counter()
     cfg = get_config(SHARDED_ARCH).scaled(**SHARDED_CUT)
     model = build_model(cfg, device=DEV)
@@ -3379,13 +3897,15 @@ def phase_tp():
     torch.cuda.reset_peak_memory_stats()
     launches, by_run, by_variant, by_shape = 0, {}, {}, {}
 
-    def tally(run, counts):
+    def tally(run, arch, flash, gla, variants, shapes):
         nonlocal launches
-        launches += counts[0]
-        run = f"tp:{run}:{SHARDED_ARCH}"
-        by_run[run] = by_run.get(run, 0) + counts[0]
-        for key, dst in ((1, by_variant), (2, by_shape)):
-            for k, v in counts[key].items():
+        launches += flash + gla
+        got = by_run.setdefault(f"tp:{run}:{arch}",
+                                {"flash_attention": 0, "gla_scan": 0})
+        got["flash_attention"] += flash
+        got["gla_scan"] += gla
+        for src, dst in ((variants, by_variant), (shapes, by_shape)):
+            for k, v in src.items():
                 dst[k] = dst.get(k, 0) + v
 
     for dtype in TP_DTYPES:
@@ -3396,8 +3916,17 @@ def phase_tp():
         tp_decode(c, p, ptoks, tally)
         del p
         torch.cuda.empty_cache()
+    del p0
+    torch.cuda.empty_cache()
+    for arch in TP_FAMILIES:
+        t0 = time.perf_counter()
+        tp_family(arch, tally)
+        emit(phase="tp", check="family_seconds", arch=arch,
+             seconds=time.perf_counter() - t0,
+             peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     peak = torch.cuda.max_memory_allocated() / 1e9
     tp_kernel_checks(cfg)
+    tp_family_kernel_checks()
     times = tp_times(cfg, P)
     for name, row in times.items():
         emit(phase="tp", check="times", at=name, **row)
@@ -3411,6 +3940,8 @@ def phase_tp():
 # -------------------------------------------------------------- dryrun --
 DRYRUN_ROWS, DRYRUN_SKIPS = 80, 16
 DRYRUN_LIMIT_S = 600
+#: a serving rank's memory at decode_32k must fit the card (80 GB)
+DRYRUN_DECODE_GIB = 80
 
 
 def pin_threads(cores):
@@ -3484,6 +4015,16 @@ def phase_dryrun(started):
           and status.count("SKIP") == DRYRUN_SKIPS and "FAIL" not in status,
           f"dryrun: rc {rc}, {len(rows)} rows, {status.count('SKIP')} SKIP, "
           f"{status.count('FAIL')} FAIL; {text[-1500:]}")
+    decode = {f"{r['arch']} {r['mesh']}":
+              r["memory"]["per_device_total"] / 2**30
+              for r in rows if r["shape"] == "decode_32k"
+              and r["status"] == "OK"}
+    over = {k: v for k, v in decode.items() if v >= DRYRUN_DECODE_GIB}
+    emit(phase="dryrun", check="decode_memory", rows=len(decode),
+         max_gib=max(decode.values(), default=None),
+         limit_gib=DRYRUN_DECODE_GIB, over=over)
+    check(decode and not over, f"dryrun: decode_32k rows at or over "
+                               f"{DRYRUN_DECODE_GIB} GiB a rank: {over}")
 
 
 PER_CALL_KEYS = ("shape", "variant", "n_split", "ms", "host_us",
@@ -3591,7 +4132,7 @@ def main() -> None:
     done["train"][0][f"sharded:{SHARDED_ARCH}"] = {
         "flash_attention": done["train_sharded"], "gla_scan": 0}
     for run, n in done["tp"]["by_run"].items():
-        done["serve"][0][run] = {"flash_attention": n, "gla_scan": 0}
+        done["serve"][0][run] = n
 
     print(smi, flush=True)
     kernels = kernels_line(done["kernel"], *done["serve"], done["times"],

@@ -15,8 +15,9 @@ operations:
   of its cache);
 - ``flash_decode_partials``: q, k, v and the positions in, the packed
   partials (B * H, 2 + D) f32 out; the flash formula's flops for its one
-  query over its keys; ``flash_decode_merge``: the ranks' partials in, o
-  out, no matrix flops;
+  query over its keys (every key of a rank's slots where it is not
+  causal: encdec's cross K/V); ``flash_decode_merge``: the ranks'
+  partials in, o out, no matrix flops;
 - ``gla_scan``: r, k, v, logw, u and the initial state in, y and the
   final state out; the flops of the chunked form in chunks of
   ``gla_scan.CHUNK`` rows.

@@ -40,19 +40,19 @@ move (``sharding.collectives.LOG``). Per cell:
   backward through the plain versions' autograd, as on the card.
 
 Training cells run the sharded step of ``train.sharded``; serving cells
-(prefill, decode) the sharded serving step of ``serve.sharded``. The
-dense family runs tensor-parallel over 'model' in both (``sharding.tp``):
-a rank holds and computes with its pieces of the attention, MLP and vocab
-leaves, the partial products all-reduced, and at decode its S_max/M slots
-of the KV cache, the ranks' attention partials exchanged and merged. The
-other families keep storage sharding: training gathers each weight over
-'model' per layer; serving holds each layer's weights gathered (a
-per-step gather of every weight over 'model' would cost (M-1)/M of the
-weights each decode step), the experts expert-parallel where the sequence
-splits (prefill), and the cache whole over 'model'. The batch is split
-over the batch axes where it divides; the step's tokens and logits (the
-rank's vocab columns, under tensor parallelism) are all-gathered over the
-batch axes, as JAX's replicated outputs are.
+(prefill, decode) the sharded serving step of ``serve.sharded``. Every
+family runs tensor-parallel over 'model' in both (``sharding.tp``): a
+rank holds and computes with its pieces of the attention, MLP, vocab and
+its family's head blocks, the partial products all-reduced, and at
+decode its S_max/M slots of the KV cache (and its heads of a recurrent
+state), the ranks' attention partials exchanged and merged. The MoE
+experts are held E/M a rank in both, expert-parallel where the sequence
+splits over 'model' and each rank's experts' rows of the dense dispatch
+at a decode step. A serving rank stores every weight as its pieces, as
+a training rank does. The batch is split over the batch axes where it
+divides; the step's tokens and logits (the rank's vocab columns, under
+tensor parallelism) are all-gathered over the batch axes, as JAX's
+replicated outputs are.
 
 The roofline uses the H100 SXM's datasheet peaks
 (``launch.hlo_analysis``: 989e12 bf16 FLOP/s, 3.35e12 B/s HBM, 450e9 B/s
@@ -87,7 +87,7 @@ from repro_torch.serve.sharded import ShardedServing
 from repro_torch.sharding import DEFAULT_RULES, Rules
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.params import batch_axes
-from repro_torch.sharding.partition import mesh_axes, mesh_axis_size
+from repro_torch.sharding.partition import mesh_axes
 from repro_torch.train import OptConfig, TrainConfig
 from repro_torch.train.sharded import ShardedTraining
 
@@ -333,22 +333,11 @@ def _vocab_cols(model) -> int:
     return V // model.tp.M if model.vocab_tp() else V
 
 
-def _serving_param_bytes(cfg: ArchConfig, cell: ShapeCell, mesh,
-                         rules: Rules, model) -> int:
+def _serving_param_bytes(model) -> int:
     """The weights a serving rank holds (``model`` placed by
-    ``ShardedServing``): the tensor-parallel pieces, every other weight
-    whole, but the experts' 1/M where they run expert-parallel (the
-    sequence splits over M)."""
-    M = mesh_axis_size(mesh, rules.get("experts"))
-    ep = (cfg.n_experts and M > 1 and not cfg.n_experts % M
-          and cell.kind == "prefill" and not cell.seq_len % M)
-    total = 0
-    for name, p in model.named_parameters():
-        b = p.numel() * p.element_size()
-        if ep and ".moe." in name and name.rsplit(".", 1)[1] in ("wi", "wo"):
-            b //= M
-        total += b
-    return total
+    ``ShardedServing``): every stored piece, the experts' E/M among
+    them."""
+    return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
 def count_serve(cfg: ArchConfig, cell: ShapeCell, mesh, rules: Rules
@@ -384,7 +373,7 @@ def count_serve(cfg: ArchConfig, cell: ShapeCell, mesh, rules: Rules
     counts = by_shape(cfg, cell, run)
     serving, inputs = serving_inputs(cfg, cell)
     model = serving.model
-    params = _serving_param_bytes(cfg, cell, mesh, rules, model)
+    params = _serving_param_bytes(model)
     B = inputs["tokens"].shape[0]
     V = _vocab_cols(model)
     logits = B * V * 4

@@ -10,6 +10,16 @@ default ``block_k`` of 512 (``cm.chunked_call``): the flash kernel under
 ``attn_impl="flash"``, non-causal in the encoder and the cross-attention
 (qpos = kpos = 0 there), with the same ``attention_chunked`` as its
 backward. The decode step updates its cache in place.
+
+Under tensor parallelism (``sharding.tp``) every attention runs on the
+rank's heads: the encoder's non-causal self-attention, the decoder's
+causal self-attention and its cross-attention (q and the encoder's K/V
+column-parallel by the rank's heads, ``wo`` row-parallel), and every MLP
+on its d_ff columns. The cache (``SplitCache`` of ``EncDecCache``s)
+splits the self-attention ring and the cross K/V over the ranks' slots,
+as JAX's ``cache_seq`` -> 'model' splits ``k``/``v`` and ``xk``/``xv``;
+at decode each rank's partials over its slots, non-causal for the cross
+K/V, are merged across the ranks (``tp_decode_attention``).
 """
 from __future__ import annotations
 
@@ -25,11 +35,14 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike
 from repro_torch.models import common as cm
 from repro_torch.models.transformer import (MLP, Attention, Block, Norm,
-                                            TransformerLM, _Params,
-                                            apply_norm, attn_out,
-                                            decode_attention_raw, mlp,
-                                            project_qkv, ring_layout,
-                                            run_layers)
+                                            SplitCache, TransformerLM,
+                                            _Params, _heads, apply_norm,
+                                            attention_roles, layout_cache,
+                                            mlp_roles, ring_slots,
+                                            run_layers, tp_attention,
+                                            tp_decode_attention,
+                                            tp_out_whole)
+from repro_torch.sharding.tp import group_of
 
 
 @dataclasses.dataclass
@@ -105,6 +118,21 @@ class EncDecLM(TransformerLM):
     def make_block(self, device: torch.device) -> nn.Module:
         return EncDecBlock(self.cfg, device)
 
+    def tp_roles(self):
+        """The decoder's and the vocab's (``block_roles``), and each
+        encoder layer's attention and MLP."""
+        out = super().tp_roles()
+        for i in range(len(self.encoder)):
+            out.update(attention_roles(f"encoder.{i}.attn",
+                                       self.encoder[i].attn))
+            out.update(mlp_roles(self.cfg, f"encoder.{i}.mlp"))
+        return out
+
+    def block_roles(self, name: str, blk: nn.Module):
+        return {**attention_roles(f"{name}.attn", blk.attn),
+                **attention_roles(f"{name}.xattn", blk.xattn),
+                **mlp_roles(self.cfg, f"{name}.mlp")}
+
     # -------------------------------------------------------------- specs --
     def encoder_layer_specs(self) -> cm.ParamTree:
         return self.param_specs()["encoder"]
@@ -148,12 +176,13 @@ class EncDecLM(TransformerLM):
     def _encoder_body(self, p: Block, h: torch.Tensor,
                       positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        q, k, v = project_qkv(cfg, p.attn, apply_norm(cfg, p.ln1, h),
-                              positions, rope=False)
-        o = cm.chunked_call(self.attn_impl, q, k, v, causal=False,
-                            qpos=positions, kpos=positions)
-        h = h + attn_out(p.attn, o)
-        return h + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, h))
+        a, _ = self.attention(
+            p.attn, apply_norm(cfg, p.ln1, h), positions,
+            lambda q, k, v: cm.chunked_call(self.attn_impl, q, k, v,
+                                            causal=False, qpos=positions,
+                                            kpos=positions), rope=False)
+        h = h + a
+        return h + self.ffn(p, apply_norm(cfg, p.ln2, h))
 
     def encode(self, frames: torch.Tensor, *,
                remat: bool = True) -> torch.Tensor:
@@ -169,60 +198,59 @@ class EncDecLM(TransformerLM):
         return apply_norm(self.cfg, self.enc_norm, x)
 
     # ------------------------------------------------------------ decoder --
-    def _cross_kv(self, p: Attention, enc: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        cfg = self.cfg
-        B, Se, _ = enc.shape
-        G, hd = cfg.n_kv_heads, cfg.hdim
-        return ((enc @ p.wk).reshape(B, Se, G, hd),
-                (enc @ p.wv).reshape(B, Se, G, hd))
-
-    def _cross_attend(self, p: Attention, x: torch.Tensor, xk: torch.Tensor,
-                      xv: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        B, S, _ = x.shape
-        q = (x @ p.wq).reshape(B, S, cfg.n_heads, cfg.hdim)
+    def _cross(self, p: Attention, x: torch.Tensor, enc: torch.Tensor
+               ) -> Tuple[torch.Tensor, object]:
+        """The cross-attention of the normed x to the encoder states:
+        (output, (xk, xv) as the cache takes them)."""
         dev = x.device
-        o = cm.chunked_call(
-            self.attn_impl, q, xk, xv, causal=False,
-            qpos=torch.zeros(S, dtype=torch.int32, device=dev),
-            kpos=torch.zeros(xk.shape[1], dtype=torch.int32, device=dev))
-        return attn_out(p, o)
+        S, Se = x.shape[1], enc.shape[1]
+        return tp_attention(
+            self.cfg, group_of(self, p), p, x,
+            torch.zeros(S, dtype=torch.int32, device=dev),
+            lambda q, k, v: cm.chunked_call(
+                self.attn_impl, q, k, v, causal=False,
+                qpos=torch.zeros(S, dtype=torch.int32, device=dev),
+                kpos=torch.zeros(Se, dtype=torch.int32, device=dev)),
+            rope=False, kv_in=enc)
 
     def _decoder_body(self, p: EncDecBlock, h: torch.Tensor,
                       positions: torch.Tensor, enc: torch.Tensor,
                       kv: Optional[List] = None) -> torch.Tensor:
         """One decoder layer over the whole sequence; ``kv`` collects its
-        (k, v, xk, xv) for the cache."""
+        ((k, v), (xk, xv)) for the cache."""
         cfg = self.cfg
-        q, k, v = project_qkv(cfg, p.attn, apply_norm(cfg, p.ln1, h),
-                              positions, rope=False)
-        o = cm.chunked_call(self.attn_impl, q, k, v, causal=True,
-                            qpos=positions, kpos=positions)
-        h = h + attn_out(p.attn, o)
-        xk, xv = self._cross_kv(p.xattn, enc)
-        h = h + self._cross_attend(p.xattn, apply_norm(cfg, p.ln_x, h), xk,
-                                   xv)
+        a, skv = self.attention(
+            p.attn, apply_norm(cfg, p.ln1, h), positions,
+            lambda q, k, v: cm.chunked_call(self.attn_impl, q, k, v,
+                                            causal=True, qpos=positions,
+                                            kpos=positions), rope=False)
+        h = h + a
+        a, xkv = self._cross(p.xattn, apply_norm(cfg, p.ln_x, h), enc)
+        h = h + a
         if kv is not None:
-            kv.append((k, v, xk, xv))
-        return h + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, h))
+            kv.append((skv, xkv))
+        return h + self.ffn(p, apply_norm(cfg, p.ln2, h))
 
-    def decoder_forward(self, tokens: torch.Tensor, enc: torch.Tensor, *,
-                        remat: bool = True) -> torch.Tensor:
+    def decoder_hidden(self, tokens: torch.Tensor, enc: torch.Tensor, *,
+                       remat: bool = True,
+                       kv: Optional[List] = None) -> torch.Tensor:
         S = tokens.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
         x = self.embed_tokens(tokens)
         x = x + _sinusoid_on(S, x)
-        x = run_layers(self._decoder_body, self.layers, x, positions, enc,
-                       remat=remat)
-        return self.unembed(x)
+        if kv is not None:
+            for p in self.layers:
+                x = self._decoder_body(p, x, positions, enc, kv)
+            return x
+        return run_layers(self._decoder_body, self.layers, x, positions,
+                          enc, remat=remat)
 
-    def logits(self, batch: Dict[str, torch.Tensor], *,
+    def hidden(self, batch: Dict[str, torch.Tensor], *,
                remat: bool = True) -> torch.Tensor:
         """Encode the batch's frames, then the decoder over its tokens;
-        ``forward`` and ``loss`` are ``TransformerLM``'s."""
+        ``forward``, ``logits`` and ``loss`` are ``TransformerLM``'s."""
         enc = self.encode(batch["frames"], remat=remat)
-        return self.decoder_forward(batch["tokens"], enc, remat=remat)
+        return self.decoder_hidden(batch["tokens"], enc, remat=remat)
 
     # ------------------------------------------------------------- decode --
     def init_cache(self, B: int, S_max: int) -> EncDecCache:
@@ -241,46 +269,84 @@ class EncDecLM(TransformerLM):
             xv=torch.zeros(xkv, dtype=cfg.tdtype, device=dev))
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor],
-                cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, EncDecCache]:
-        """Encode the frames, run the prompt, return (full logits, cache):
-        the decoder's K/V as a ring of ``cache_len`` slots, and each
-        layer's cross K/V of the encoder states."""
+    def prefill_parts(self, batch: Dict[str, torch.Tensor],
+                      cache_len: Optional[int] = None
+                      ) -> Tuple[List[torch.Tensor], object]:
+        """Encode the frames, run the prompt: (the logits' parts, the
+        cache): the decoder's K/V as a ring of ``cache_len`` slots, and
+        each layer's cross K/V of the encoder states. Under tensor
+        parallelism both split over the ranks' slots where the ring and
+        the encoder's length divide by M (a ``SplitCache``), else each
+        is whole."""
         tokens = batch["tokens"]
         S = tokens.shape[1]
+        tp = self.tp
         enc = self.encode(batch["frames"], remat=False)
-        positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-        x = self.embed_tokens(tokens)
-        x = x + _sinusoid_on(S, x)
         kv: List = []
-        for p in self.layers:
-            x = self._decoder_body(p, x, positions, enc, kv)
-        logits = self.unembed(x)
-        ks, vs, xks, xvs = (torch.stack(t) for t in zip(*kv))
-        ks, vs, kpos = ring_layout(ks, vs, S, cache_len)
-        return logits, EncDecCache(k=ks.contiguous(), v=vs.contiguous(),
-                                   kpos=kpos, xk=xks.contiguous(),
-                                   xv=xvs.contiguous())
+        x = self.decoder_hidden(tokens, enc, kv=kv)
+        parts = self.final_parts(x)
+        C, Se = ring_slots(cache_len, S, 0), enc.shape[1]
+        split = tp is not None and not C % tp.M and not Se % tp.M
+        ks, vs, kpos = layout_cache(tp, [a for a, _ in kv], S, cache_len,
+                                    0, split)
+        xks, xvs, _ = layout_cache(tp, [b for _, b in kv], Se, None, 0,
+                                   split)
+        if tp is None or not split:
+            one = EncDecCache(k=ks[0], v=vs[0], kpos=kpos, xk=xks[0],
+                              xv=xvs[0])
+            if tp is None:
+                return parts, one
+            return parts, SplitCache([one], 0)
+        return parts, SplitCache(
+            [EncDecCache(k=k, v=v, kpos=kp.contiguous(), xk=xk, xv=xv)
+             for k, v, kp, xk, xv in zip(ks, vs, tp.slice(kpos, 0), xks,
+                                         xvs)], C)
+
+    def _decode_cross(self, p: Attention, h: torch.Tensor, cache, i: int
+                      ) -> torch.Tensor:
+        """Layer i's cross-attention of one decode step's normed h to the
+        cached encoder K/V: q with every head, the ranks' partials over
+        their slots merged where the cache is split."""
+        cfg, tp, g = self.cfg, self.tp, group_of(self, p)
+        zero = torch.zeros((1,), dtype=torch.int32, device=h.device)
+        q = g.gather([x @ w for x, w in zip(g.copy(h), g.pieces(p, "wq"))],
+                     -1, True)
+        q = _heads(cfg, p, q, cfg.n_heads, None, zero, False)
+        if isinstance(cache, SplitCache) and cache.slots:
+            o = tp_decode_attention(
+                tp, q, [c.xk[i] for c in cache.parts],
+                [c.xv[i] for c in cache.parts],
+                [torch.zeros((c.xk.shape[2],), dtype=torch.int32,
+                             device=h.device) for c in cache.parts],
+                zero, 0, self.attn_impl, causal=False)
+        else:
+            c = cache.parts[0] if isinstance(cache, SplitCache) else cache
+            o = cm.chunked_call(
+                self.attn_impl, q, c.xk[i], c.xv[i], causal=False,
+                qpos=zero, kpos=torch.zeros((c.xk.shape[2],),
+                                            dtype=torch.int32,
+                                            device=h.device))
+        return tp_out_whole(cfg, g, p, o)
 
     @torch.no_grad()
-    def decode_step(self, cache: EncDecCache, tokens: torch.Tensor,
-                    pos: int) -> Tuple[torch.Tensor, EncDecCache]:
+    def decode_split(self, cache, tokens: torch.Tensor, pos: int
+                     ) -> Tuple[List[torch.Tensor], object]:
         """One decode step: tokens (B,1) at position ``pos``, its sinusoid
         row at ``pos % S_max`` as in JAX. Updates ``cache`` in place and
-        returns it with the (B,1,V) logits."""
+        returns it with the logits' parts (``prefill_split``'s)."""
         cfg = self.cfg
         x = self.embed_tokens(tokens)
-        S_max = cache.k.shape[2]
+        if isinstance(cache, SplitCache):
+            S_max = cache.slots or cache.parts[0].k.shape[2]
+        else:
+            S_max = cache.k.shape[2]
         x = x + _sinusoid_on(S_max, x)[pos % S_max]
-        cache.kpos[pos % S_max] = pos
+        qpos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        slot = self.mark_slot(cache, pos)
         for i, p in enumerate(self.layers):
-            o = decode_attention_raw(
-                cfg, p.attn, apply_norm(cfg, p.ln1, x), cache.k[i],
-                cache.v[i], pos, cache.kpos, attn_impl=self.attn_impl,
-                rope=False)
-            x = x + attn_out(p.attn, o)
-            x = x + self._cross_attend(p.xattn, apply_norm(cfg, p.ln_x, x),
-                                       cache.xk[i], cache.xv[i])
-            x = x + mlp(cfg, p.mlp, apply_norm(cfg, p.ln2, x))
-        return self.unembed(x), cache
+            x = x + self.decode_attention(p.attn, apply_norm(cfg, p.ln1, x),
+                                          cache, i, slot, qpos, rope=False)
+            x = x + self._decode_cross(p.xattn, apply_norm(cfg, p.ln_x, x),
+                                       cache, i)
+            x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
+        return self.final_parts(x), cache

@@ -26,8 +26,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.autograd import PlainSpanFn
 from repro_torch.models.common import ParamSpec, tree_leaves
 from repro_torch.models.transformer import (META, MLP, Attention, Norm,
-                                            TransformerLM, _Params, mlp,
-                                            stack_specs)
+                                            TransformerLM, _Params,
+                                            attention_roles, mlp_roles,
+                                            stack_specs, tp_mlp)
+from repro_torch.sharding.tp import group_of
 
 
 class Experts(_Params):
@@ -139,18 +141,34 @@ def _combine(y: torch.Tensor, gates: torch.Tensor, order: torch.Tensor,
     rounds it. No atomics, so a forward on the card gives the same bits
     every time, where index_add_ on a CUDA tensor would add in whatever
     order its atomics land (k = 4 for dbrx)."""
+    return sum_rising(pair_values(y, gates, order, dest, keep, topi, dtype),
+                      topi)
+
+
+def pair_values(y: torch.Tensor, gates: torch.Tensor, order: torch.Tensor,
+                dest: torch.Tensor, keep: torch.Tensor, topi: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Each (token, choice) pair's expert output row of y (rows, d) times
+    its gate, zero where dropped: (T, k, d) in ``dtype``. A dest of
+    ``rows`` reads a zero row."""
     T, k = topi.shape
     d = y.shape[1]
     yf = torch.cat([y, torch.zeros((1, d), dtype=y.dtype, device=y.device)])
     g = gates.reshape(-1)[order] * keep.to(gates.dtype)
     vals = (yf[dest] * g[:, None]).to(dtype)
-    # pair order[i] sits at i: place the values back at (token, choice),
-    # then walk each token's choices by rising expert id
+    # pair order[i] sits at i: place the values back at (token, choice)
     by_pair = torch.empty_like(vals)
     by_pair[order] = vals
-    by_pair = by_pair.reshape(T, k, d)
+    return by_pair.reshape(T, k, d)
+
+
+def sum_rising(by_pair: torch.Tensor, topi: torch.Tensor) -> torch.Tensor:
+    """Each token's k values (T, k, d) added by rising expert id, in
+    their type: (T, d)."""
+    T, k, d = by_pair.shape
+    dtype = by_pair.dtype
     rising = torch.argsort(topi, dim=-1)
-    out = torch.zeros((T, d), dtype=dtype, device=y.device)
+    out = torch.zeros((T, d), dtype=dtype, device=by_pair.device)
     for j in range(k):
         out = out + by_pair.gather(
             1, rising[:, j, None, None].expand(T, 1, d))[:, 0]
@@ -197,10 +215,18 @@ def moe_ffn(cfg: ArchConfig, p: Experts, x: torch.Tensor
 class MoETransformerLM(TransformerLM):
     """Transformer with MoE FFN (dbrx) + optional dense residual (arctic).
     Forward, loss, prefill and decode are ``TransformerLM``'s; each layer's
-    FFN is ``ffn``."""
+    FFN is ``ffn``. Under tensor parallelism the attention, the vocab and
+    arctic's dense residual MLP run on the ranks' pieces; the experts run
+    expert-parallel (``models.moe_ep``)."""
 
     def make_block(self, device: torch.device) -> nn.Module:
         return MoEBlock(self.cfg, device)
+
+    def block_roles(self, name: str, blk: nn.Module):
+        out = attention_roles(f"{name}.attn", blk.attn)
+        if self.cfg.moe_dense_residual:
+            out.update(mlp_roles(self.cfg, f"{name}.dense_mlp"))
+        return out
 
     def moe_weight_axes_note(self) -> str:
         return ("expert weights: ('layers','experts','expert_in',"
@@ -219,10 +245,22 @@ class MoETransformerLM(TransformerLM):
         return total
 
     def ffn(self, p: MoEBlock, h: torch.Tensor) -> torch.Tensor:
+        """The MoE FFN of the residual stream every 'model' rank holds:
+        ``moe_ffn_ep`` under the rules. Virtual ranks (``tp.VirtualTP``,
+        no rules) run the dense dispatch, each rank on its E/M experts'
+        rows where the sequence does not split over them (a decode step,
+        as JAX's fallback), else on every expert."""
         # models.moe_ep builds on this module, so it is imported here
-        from repro_torch.models.moe_ep import moe_ffn_ep
-        cfg = self.cfg
-        out, _ = moe_ffn_ep(cfg, p.moe, h)
+        from repro_torch.models.moe_ep import moe_ffn_ep, moe_ffn_held
+        from repro_torch.sharding.partition import current_rules
+        cfg, tp = self.cfg, self.tp
+        if (tp is not None and current_rules() is None
+                and h.shape[1] % tp.M and not cfg.n_experts % tp.M):
+            out = moe_ffn_held(cfg, p.moe, h, tp.M, tp.reduce)[0]
+        else:
+            out, _ = moe_ffn_ep(cfg, p.moe, h)
         if cfg.moe_dense_residual:
-            out = out + mlp(_dense_cfg(cfg), p.dense_mlp, h)
+            dc = _dense_cfg(cfg)
+            out = out + tp_mlp(dc, group_of(self, p.dense_mlp),
+                               p.dense_mlp, h)
         return out

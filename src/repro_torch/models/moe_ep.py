@@ -36,9 +36,17 @@ Three things differ from JAX's ``shard_fn``, none in the arithmetic:
   done as the transpose the all_to_all performs.
 
 JAX's fallbacks to the dense ``moe_ffn`` are kept: no active rules,
-``REPRO_MOE_DENSE=1``, M <= 1, E % M and S % M. JAX's B % |batch| is the
+``REPRO_MOE_DENSE=1``, M <= 1 and E % M. JAX's B % |batch| is the
 caller's: it holds its rows already, split where the batch is split
-(``train/sharded.py`` refuses a batch that does not divide).
+(``train/sharded.py`` refuses a batch that does not divide). Where S % M
+(a decode step's one token), JAX's fallback ``moe_ffn`` runs with the
+experts' weights and buffers split over 'experts' -> 'model': every rank
+holds the step's tokens and runs the dense dispatch on its E/M experts'
+rows of the (E, C, d) buffer (``held_ranks``). The port does the same;
+each rank's gated outputs, at (token, choice) and zero for the other
+ranks' experts, are summed over the ranks (exact: one rank's value and
+zeros) and then added by rising expert id, as on one device, so the
+result is the dense dispatch's, bit for bit.
 """
 from __future__ import annotations
 
@@ -48,9 +56,10 @@ import torch
 
 from repro_torch import flags
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.moe import (Experts, _combine, _to_experts, dispatch,
-                                    expert_compute, moe_ffn, route_probs,
-                                    switch_aux)
+from repro_torch.models.moe import (Experts, _combine, _to_experts,
+                                    capacity, dispatch, expert_compute,
+                                    moe_ffn, pair_values, route,
+                                    route_probs, sum_rising, switch_aux)
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.params import held_over
 from repro_torch.sharding.partition import (current_rules, mesh_axes,
@@ -121,6 +130,58 @@ def ep_ranks(cfg: ArchConfig, router: torch.Tensor, ranks: Sequence[int],
     return join(outs), auxes, dropped
 
 
+def held_ranks(cfg: ArchConfig, router: torch.Tensor, ranks: Sequence[int],
+               experts: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+               x: torch.Tensor, reduce: Callable
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense dispatch of the tokens x (B, S, d), which every rank
+    holds, on the ranks of index ``ranks`` with their E/M experts
+    ``experts`` (one (wi, wo) pair a rank): each computes its experts'
+    rows of the (E, C, d) buffer and its pairs' gated outputs (zero for
+    the other ranks' pairs); ``reduce`` sums the ranks' (T, k, d) values.
+    Returns (out (B, S, d), aux, dropped pairs, a tensor)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.moe_topk
+    T = B * S
+    C = capacity(cfg, T)
+    xt = x.reshape(T, d)
+    gates, topi, aux = route(cfg, router, xt)
+    order, dest, keep = dispatch(cfg, topi, C)
+    buf = _to_experts(xt, order // k, dest, E * C + 1)[:-1]
+    parts = []
+    for m, (wi, wo) in zip(ranks, experts):
+        El = wi.shape[0]
+        rows = El * C
+        y = expert_compute(cfg, wi, wo, buf[m * rows:(m + 1) * rows]
+                           .reshape(El, C, d)).reshape(rows, d)
+        mine = keep & (dest // rows == m)
+        parts.append(pair_values(y, gates, order,
+                                 torch.where(mine, dest - m * rows, rows),
+                                 mine, topi, x.dtype))
+    out = sum_rising(reduce(parts), topi)
+    return out.reshape(B, S, d), aux, (~keep).sum()
+
+
+def moe_ffn_held(cfg: ArchConfig, p: Experts, x: torch.Tensor, M: int,
+                 reduce: Callable = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``held_ranks`` for M ranks run in one process, each rank's
+    experts a slice of the whole weights; ``reduce`` the sum over them
+    (default: in rank order). Returns (out, aux, dropped pairs)."""
+    El = cfg.n_experts // M
+    experts = [(p.wi[m * El:(m + 1) * El], p.wo[m * El:(m + 1) * El])
+               for m in range(M)]
+    if reduce is None:
+        def reduce(xs):
+            out = xs[0]
+            for t in xs[1:]:
+                out = out + t
+            return out
+    out, aux, dropped = held_ranks(cfg, p.router, range(M), experts, x,
+                                   reduce)
+    return out, aux, int(dropped)
+
+
 def _local_experts(cfg: ArchConfig, p: Experts, mesh, ep_axis: str, M: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """This rank's E/M experts: the stored shard where the parameters are
@@ -180,7 +241,11 @@ def moe_ffn_ep(cfg: ArchConfig, p: Experts, x: torch.Tensor
         ep_axis = ep_axis[0]
     B, S, d = x.shape
     if S % M:
-        return moe_ffn(cfg, p, x)
+        out, aux, _ = held_ranks(
+            cfg, p.router, [col.axis_index(mesh, ep_axis)],
+            [_local_experts(cfg, p, mesh, ep_axis, M)], x,
+            lambda parts: col.Reduce.apply(parts[0], mesh, ep_axis))
+        return out, aux
     C = local_capacity(cfg, B * (S // M))
     out, auxes, _ = ep_ranks(
         cfg, p.router, [col.axis_index(mesh, ep_axis)],

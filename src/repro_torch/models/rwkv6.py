@@ -9,11 +9,23 @@ and an output gate). For T > 1 the time-mix runs the GLA scan picked by
 plain ``gla_chunked``); a single decode token runs ``gla_step``, plain
 torch, as the JAX package does. The decode step updates its cache in
 place.
+
+Under tensor parallelism (``sharding.tp``) the time-mix runs on the
+rank's heads: ``wr``/``wk``/``wv``/``wg`` and the decay's ``wB``
+column-parallel (``qkv``), ``w0``/``u`` by ``heads``, ``ln_x`` by
+``qkv``, ``wo`` row-parallel; the GLA scan runs on the rank's H/M heads
+with its own state. The channel-mix's ``wk`` is column-parallel and
+``wv`` row-parallel (``mlp``); ``wr`` (``embed``, ``embed``) and the
+token-shift mixes stay whole. Where the heads do not divide by M the
+heads split into gcd(H, M) groups, each repeated on its ranks
+(``transformer.head_group``), as JAX's 'heads' -> 'model' falls back.
+The cache (``SplitCache`` of ``RwkvCache``s) holds each rank's heads of
+the state; the token-shift carries stay whole.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -23,8 +35,11 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike
 from repro_torch.models import common as cm
 from repro_torch.models.recurrence import gla_step, make_gla
-from repro_torch.models.transformer import (Norm, TransformerLM, _Params,
-                                            apply_norm)
+from repro_torch.models.transformer import (Norm, SplitCache, TransformerLM,
+                                            _Params, apply_norm, head_group,
+                                            rank_cols, tp_cols, tp_out,
+                                            tp_vec)
+from repro_torch.sharding.tp import group_of
 
 LORA_W = 64  # low-rank dim of the dynamic decay (paper: 64 for 7B)
 
@@ -98,41 +113,69 @@ class Rwkv6LM(TransformerLM):
     def make_block(self, device: torch.device) -> nn.Module:
         return RwkvBlock(self.cfg, device)
 
+    def block_roles(self, name: str, blk: nn.Module):
+        """The time-mix's projections, ``ln_x`` and ``wo`` (one group),
+        its per-head ``w0``/``u`` (a group of their own: they split
+        where the heads divide), and the channel-mix's MLP."""
+        a, f = f"{name}.att", f"{name}.ffn"
+        out = {f"{a}.{w}": (1, False, a)
+               for w in ("wr", "wk", "wv", "wg", "wB")}
+        out.update({f"{a}.ln_x": (0, False, a), f"{a}.wo": (0, False, a),
+                    f"{a}.w0": (0, False, f"{a}.heads"),
+                    f"{a}.u": (0, False, f"{a}.heads"),
+                    f"{f}.wk": (1, False, f), f"{f}.wv": (0, False, f)})
+        return out
+
     # ------------------------------------------------------------ blocks --
     def _time_mix(self, p: TimeMix, x: torch.Tensor, x_prev: torch.Tensor,
-                  state: Optional[torch.Tensor] = None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: (B,T,d); x_prev: (B,T,d) shifted input. Returns (out, S_fin)."""
+                  state: Optional[List[torch.Tensor]] = None
+                  ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """x: (B,T,d); x_prev: (B,T,d) shifted input; ``state``: each of
+        the group's ranks' (B, H/T, K, K) state, or None. Returns (out,
+        each rank's final state)."""
         cfg = self.cfg
+        tp = group_of(self, p)
         B, T, _ = x.shape
         H, K = cfg.n_heads, cfg.hdim
+        Hl = head_group(tp, H)[1]
         xr, xk, xv, xw, xg = (_mix(p.mu[i], x, x_prev) for i in range(5))
-        r = (xr @ p.wr).reshape(B, T, H, K)
-        k = (xk @ p.wk).reshape(B, T, H, K)
-        v = (xv @ p.wv).reshape(B, T, H, K)
-        g = F.silu((xg @ p.wg).float())
-        lora = (xw @ p.wA) @ p.wB
-        logw = -torch.exp(torch.clamp(
-            p.w0.reshape(1, 1, H, K).float()
-            + lora.reshape(B, T, H, K).float(), -8.0, 6.0))
-        if T == 1 and state is not None:
-            y, S = gla_step(state, r[:, 0], k[:, 0], v[:, 0], logw[:, 0],
-                            p.u)
-            y = y[:, None]
-        else:
-            y, S = self.gla(r, k, v, logw, p.u, initial_state=state)
-        # per-head groupnorm then output gate
-        y = cm.rms_norm(y.reshape(B, T, H, K),
-                        p.ln_x.reshape(H, K)).reshape(B, T, H * K)
-        return (y.float() * g).to(x.dtype) @ p.wo, S
+        r, k, v = (tp_cols(tp, p, w, t, K)
+                   for w, t in (("wr", xr), ("wk", xk), ("wv", xv)))
+        g = [F.silu(t.float()) for t in tp_cols(tp, p, "wg", xg, K)]
+        lora = tp_cols(tp, p, "wB", xw @ p.wA, K)
+        w0, u, ln = (tp_vec(tp, p, n, H) for n in ("w0", "u", "ln_x"))
+        state = state or [None] * len(tp.ranks)
+        ys, finals = [], []
+        for j in range(len(tp.ranks)):
+            logw = -torch.exp(torch.clamp(
+                w0[j].reshape(1, 1, Hl, K).float()
+                + lora[j].reshape(B, T, Hl, K).float(), -8.0, 6.0))
+            rj, kj, vj = (t[j].reshape(B, T, Hl, K) for t in (r, k, v))
+            if T == 1 and state[j] is not None:
+                y, S = gla_step(state[j], rj[:, 0], kj[:, 0], vj[:, 0],
+                                logw[:, 0], u[j])
+                y = y[:, None]
+            else:
+                y, S = self.gla(rj, kj, vj, logw, u[j],
+                                initial_state=state[j])
+            # per-head groupnorm then output gate
+            y = cm.rms_norm(y.reshape(B, T, Hl, K),
+                            ln[j].reshape(Hl, K)).reshape(B, T, Hl * K)
+            ys.append((y.float() * g[j]).to(x.dtype))
+            finals.append(S)
+        return tp_out(tp, p, rank_cols(tp, ys, H)), finals
 
     def _channel_mix(self, p: ChannelMix, x: torch.Tensor,
                      x_prev: torch.Tensor) -> torch.Tensor:
+        tp = group_of(self, p)
         xk = _mix(p.mu[0], x, x_prev)
         xr = _mix(p.mu[1], x, x_prev)
-        k = torch.square(torch.relu((xk @ p.wk).float())).to(x.dtype)
+        kv = tp.reduce([
+            torch.square(torch.relu((a @ wk).float())).to(x.dtype) @ wv
+            for a, wk, wv in zip(tp.copy(xk), tp.pieces(p, "wk"),
+                                 tp.pieces(p, "wv"))])
         r = torch.sigmoid((xr @ p.wr).float())
-        return (r * (k @ p.wv).float()).to(x.dtype)
+        return (r * kv.float()).to(x.dtype)
 
     @staticmethod
     def _shift(x: torch.Tensor,
@@ -151,6 +194,9 @@ class Rwkv6LM(TransformerLM):
         return x + self._channel_mix(p.ffn, h, self._shift(h))
 
     # ------------------------------------------------------------- decode --
+    def state_module(self) -> nn.Module:
+        return self.layers[0].att
+
     def cache_len(self, cell: ShapeCell) -> int:
         return 1  # O(1) state; S_max is irrelevant
 
@@ -181,12 +227,13 @@ class Rwkv6LM(TransformerLM):
             shift_ffn=torch.zeros((L, B, d), dtype=cfg.tdtype, device=dev))
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor],
-                cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, RwkvCache]:
-        """Run the prompt, return (full logits, state). ``cache_len`` is
-        accepted for the serving steps' sake and ignored: the state is
-        O(1)."""
+    def prefill_parts(self, batch: Dict[str, torch.Tensor],
+                      cache_len: Optional[int] = None
+                      ) -> Tuple[List[torch.Tensor], object]:
+        """Run the prompt: (the logits' parts, the state). ``cache_len``
+        is accepted for the serving steps' sake and ignored: the state is
+        O(1). Under tensor parallelism a ``SplitCache`` of each rank's
+        heads of the state."""
         cfg = self.cfg
         x = self.embed_tokens(batch["tokens"])
         states, sa, sf = [], [], []
@@ -199,28 +246,37 @@ class Rwkv6LM(TransformerLM):
             sf.append(h[:, -1])
             x = x + self._channel_mix(p.ffn, h, self._shift(h))
             states.append(S)
-        logits = self.unembed(x)
-        return logits, RwkvCache(state=torch.stack(states),
-                                 shift_att=torch.stack(sa).to(cfg.tdtype),
-                                 shift_ffn=torch.stack(sf).to(cfg.tdtype))
+        sa = torch.stack(sa).to(cfg.tdtype)
+        sf = torch.stack(sf).to(cfg.tdtype)
+        parts = [RwkvCache(state=torch.stack([S[j] for S in states]),
+                           shift_att=sa, shift_ffn=sf)
+                 for j in range(len(states[0]))]
+        if self.tp is None:
+            return self.final_parts(x), parts[0]
+        return self.final_parts(x), SplitCache(parts, 0)
 
     @torch.no_grad()
-    def decode_step(self, cache: RwkvCache, tokens: torch.Tensor,
-                    pos: int) -> Tuple[torch.Tensor, RwkvCache]:
+    def decode_split(self, cache, tokens: torch.Tensor, pos: int
+                     ) -> Tuple[List[torch.Tensor], object]:
         """One decode step: tokens (B,1). Updates ``cache`` in place and
-        returns it with the (B,1,V) logits; ``pos`` is not needed."""
+        returns it with the logits' parts; ``pos`` is not needed."""
         cfg = self.cfg
+        parts = cache.parts if isinstance(cache, SplitCache) else [cache]
         x = self.embed_tokens(tokens)
         for i, p in enumerate(self.layers):
             h = apply_norm(cfg, p.ln1, x)
-            out, S = self._time_mix(p.att, h, cache.shift_att[i][:, None]
-                                    .to(h.dtype), state=cache.state[i])
-            cache.state[i].copy_(S)
-            cache.shift_att[i].copy_(h[:, -1])
+            out, S = self._time_mix(
+                p.att, h, parts[0].shift_att[i][:, None].to(h.dtype),
+                state=[c.state[i] for c in parts])
+            for c, s in zip(parts, S):
+                c.state[i].copy_(s)
+                c.shift_att[i].copy_(h[:, -1])
             x = x + out
             h = apply_norm(cfg, p.ln2, x)
             out = self._channel_mix(p.ffn, h,
-                                    cache.shift_ffn[i][:, None].to(h.dtype))
-            cache.shift_ffn[i].copy_(h[:, -1])
+                                    parts[0].shift_ffn[i][:, None]
+                                    .to(h.dtype))
+            for c in parts:
+                c.shift_ffn[i].copy_(h[:, -1])
             x = x + out
-        return self.unembed(x), cache
+        return self.final_parts(x), cache

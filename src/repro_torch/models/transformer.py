@@ -14,13 +14,18 @@ init style and logical axes (``_Params.add``); ``param_specs`` gives JAX's
 stacked spec tree and ``named_param_specs`` one spec a ``state_dict`` name.
 The models call no sharding ``hint``: the sharded step
 (``train/sharded.py``) stores each parameter as its shard and gathers it
-where the layer reads it, so activations are plain tensors. The dense
-family runs tensor-parallel over 'model' where ``sharding.tp`` places it
-(``self.tp``): attention on the rank's heads (``tp_attention``), the MLP
-on its d_ff columns (``tp_mlp``), the embedding, logits and loss on its
-vocab rows (``embed_tokens``, ``logit_parts``, ``tp_softmax_xent``), and
-at decode the KV cache split over the ranks' slots (``SplitCache``,
-``decode_step``).
+where the layer reads it, so activations are plain tensors. Every family
+runs tensor-parallel over 'model' where ``sharding.tp`` places it
+(``self.tp``, the leaves named by ``tp_roles``): attention on the rank's
+heads (``tp_attention``), the MLP on its d_ff columns (``tp_mlp``), the
+embedding, logits and loss on its vocab rows (``embed_tokens``,
+``logit_parts``, ``tp_softmax_xent``), and at decode the KV cache split
+over the ranks' slots (``SplitCache``, ``decode_split``). The families'
+own blocks (rwkv6's time- and channel-mix, hymba's SSM heads, encdec's
+cross-attention) run on the same helpers; the MoE experts run
+expert-parallel (``models.moe_ep``). A block the rules keep whole, and
+every block on one device, runs the same helpers on ``sharding.tp.WHOLE``,
+a group of one rank (``group_of``): each block has one code path.
 
 ``attn_impl`` picks the attention at every call site (forward, the
 training path, prefill, decode): ``"flash"`` (default) is the hand-written
@@ -51,6 +56,7 @@ from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.convert import restack
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common as cm
+from repro_torch.sharding.tp import group_of
 
 ATTN_IMPLS = ("flash", "ref", "chunked")
 
@@ -186,34 +192,14 @@ def apply_norm(cfg: ArchConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
 def _heads(cfg: ArchConfig, p: Attention, t: torch.Tensor, n: int,
            norm: str, positions: torch.Tensor, rope: bool) -> torch.Tensor:
     """A projection (B, S, n * hd) -> (B, S, n, hd) heads, with the qk-norm
-    ``norm`` ("q_norm"/"k_norm"; None: v) and RoPE."""
+    ``norm`` ("q_norm"/"k_norm", where p has it; None: v) and RoPE."""
     B, S, _ = t.shape
     t = t.reshape(B, S, n, cfg.hdim)
-    if norm is not None and cfg.qk_norm:
+    if norm is not None and norm in p.inits:
         t = cm.rms_norm(t, getattr(p, norm))
     if norm is not None and rope:
         t = cm.apply_rope(t, positions, cfg.rope_theta)
     return t
-
-
-def project_qkv(cfg: ArchConfig, p: Attention, x: torch.Tensor,
-                positions: torch.Tensor, *, rope: bool = True
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x: (B,S,d) -> q (B,S,H,hd), k/v (B,S,G,hd), with bias/qk-norm/RoPE
-    (``rope=False``: no rotation, as encdec's sinusoid-embedded
-    attention)."""
-    H, G = cfg.n_heads, cfg.n_kv_heads
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
-    if cfg.qkv_bias:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    return (_heads(cfg, p, q, H, "q_norm", positions, rope),
-            _heads(cfg, p, k, G, "k_norm", positions, rope),
-            _heads(cfg, p, v, G, None, positions, rope))
-
-
-def attn_out(p: Attention, o: torch.Tensor) -> torch.Tensor:
-    B, S = o.shape[:2]
-    return o.reshape(B, S, -1) @ p.wo
 
 
 def causal_attention(cfg: ArchConfig, q, k, v, positions: torch.Tensor,
@@ -230,39 +216,12 @@ def causal_attention(cfg: ArchConfig, q, k, v, positions: torch.Tensor,
                               kpos=positions, impl=attn_impl)
 
 
-def decode_attention_raw(cfg: ArchConfig, p: Attention, x: torch.Tensor,
-                         k_cache: torch.Tensor, v_cache: torch.Tensor,
-                         pos: int, kpos: torch.Tensor, *,
-                         attn_impl: str = "flash",
-                         rope: bool = True) -> torch.Tensor:
-    """One-token decode against a (B, S_max, G, hd) cache slice.
-
-    Returns the pre-projection heads (B,1,H,hd). Unlike the JAX version,
-    which returns updated copies of a donated cache, this writes the new
-    k/v into ``k_cache``/``v_cache`` in place at slot ``pos % S_max``.
-    ``kpos`` is the (S_max,) stored-position array (-1 = empty slot),
-    maintained by the caller.
-    """
-    positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = project_qkv(cfg, p, x, positions, rope=rope)
-    write = pos % k_cache.shape[1]
-    k_cache[:, write] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, write] = v[:, 0].to(v_cache.dtype)
-    return cm.make_attention(attn_impl)(q, k_cache, v_cache, causal=True,
-                                        window=cfg.sliding_window,
-                                        qpos=positions, kpos=kpos)
-
-
 def _act(cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     if cfg.act == "swiglu":
         gate, up = h.chunk(2, dim=-1)
         return F.silu(gate.float()).to(up.dtype) * up
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(h.float(), approximate="tanh").to(h.dtype)
-
-
-def mlp(cfg: ArchConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
-    return _act(cfg, x @ p.wi) @ p.wo
 
 
 # ------------------------------------------------------ tensor-parallel --
@@ -278,14 +237,17 @@ def tp_mlp(cfg: ArchConfig, tp, p: MLP, h: torch.Tensor) -> torch.Tensor:
         tp.copy(h), tp.pieces(p, "wi"), tp.pieces(p, "wo"))])
 
 
-def _tp_qkv(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor
+def _tp_qkv(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor,
+            kv_in: Optional[torch.Tensor] = None
             ) -> Tuple[List[torch.Tensor], ...]:
-    """Each rank's columns of the q, k and v projections (and biases)."""
+    """Each rank's columns of the q, k and v projections (and biases);
+    k and v of ``kv_in`` where given (cross-attention), else of h."""
     hs = tp.copy(h)
+    ks = hs if kv_in is None else tp.copy(kv_in)
     outs = []
-    for w in ("wq", "wk", "wv"):
-        t = [x @ wr for x, wr in zip(hs, tp.pieces(p, w))]
-        if cfg.qkv_bias:
+    for w, xs in (("wq", hs), ("wk", ks), ("wv", ks)):
+        t = [x @ wr for x, wr in zip(xs, tp.pieces(p, w))]
+        if "b" + w[1] in p.inits:
             t = [o + b for o, b in zip(t, tp.pieces(p, "b" + w[1]))]
         outs.append(t)
     return tuple(outs)
@@ -293,12 +255,16 @@ def _tp_qkv(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor
 
 def kv_index(cfg: ArchConfig, T: int, g: int) -> torch.Tensor:
     """The kv heads that head group g of T reads, one a local kv head: the
-    single head of the group's GQA group where its heads lie in one, else
-    one for each of its q heads (q head h reads kv head h // (H/G))."""
+    single head of the group's GQA group where its heads lie in one, the
+    run of whole GQA groups its heads span where they span whole ones
+    (hymba's 25 heads in one group: its 5 kv heads), else one for each
+    of its q heads (q head h reads kv head h // (H/G))."""
     H, G = cfg.n_heads, cfg.n_kv_heads
     Hl, group = H // T, H // G
     if group % Hl == 0:
         return torch.tensor([g * Hl // group])
+    if Hl % group == 0:
+        return torch.arange(g * Hl // group, (g + 1) * Hl // group)
     return torch.arange(g * Hl, (g + 1) * Hl) // group
 
 
@@ -309,14 +275,19 @@ def tp_out(tp, p: Attention, os: List[torch.Tensor]) -> torch.Tensor:
 
 
 def tp_attention(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor,
-                 positions: torch.Tensor, attend
+                 positions: torch.Tensor, attend, *, rope: bool = True,
+                 kv_in: Optional[torch.Tensor] = None, post=None
                  ) -> Tuple[torch.Tensor, object]:
     """Self-attention of the normed input h (B, S, d), every rank holding
     it, on the ranks' pieces of a tensor-parallel ``Attention``;
     ``attend(q, k, v)`` is the kernel's call. Returns (the output, summed
     over the ranks; (k, v) with every kv head, for the prefill's cache:
     one tensor each that every rank holds, or a list of each rank's kv
-    heads where those are its own columns).
+    heads where those are its own columns of M > 1 ranks). ``rope=False``: no rotation
+    (encdec); ``kv_in``: the keys' and values' input (encdec's
+    cross-attention of the encoder states); ``post(j, o)``: applied to
+    the head group's output o (B, S, H/T, hd) of the j-th rank run here,
+    before the ranks take their columns (hymba's output norm).
 
     The heads split into T = gcd(H, M) groups of H/T, group g on ranks
     g M/T ..; where T < M (the heads do not divide, as JAX's 'heads' ->
@@ -330,42 +301,126 @@ def tp_attention(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor,
     H, G, hd, M = cfg.n_heads, cfg.n_kv_heads, cfg.hdim, tp.M
     T = math.gcd(H, M)
     per, Hl, n = M // T, H // T, H * hd // M
-    q, k, v = _tp_qkv(cfg, tp, p, h)
+    q, k, v = _tp_qkv(cfg, tp, p, h, kv_in)
     if per == 1:
-        qs = [_heads(cfg, p, x, Hl, "q_norm", positions, True) for x in q]
+        qs = [_heads(cfg, p, x, Hl, "q_norm", positions, rope) for x in q]
     else:
         qf = tp.gather(q, -1, False)
         qs = [_heads(cfg, p, qf[..., r // per * Hl * hd:
                                 (r // per + 1) * Hl * hd],
-                     Hl, "q_norm", positions, True) for r in tp.ranks]
+                     Hl, "q_norm", positions, rope) for r in tp.ranks]
     if per == 1 and G % M == 0:
-        ks = [_heads(cfg, p, x, G // M, "k_norm", positions, True)
+        ks = [_heads(cfg, p, x, G // M, "k_norm", positions, rope)
               for x in k]
-        vs = [_heads(cfg, p, x, G // M, None, positions, True) for x in v]
-        kv = (ks, vs)
+        vs = [_heads(cfg, p, x, G // M, None, positions, rope) for x in v]
+        # one rank (``WHOLE``) holds every kv head, as each rank would
+        kv = (ks, vs) if M > 1 else (ks[0], vs[0])
     else:
         kf = _heads(cfg, p, tp.gather(k, -1, False), G, "k_norm",
-                    positions, True)
+                    positions, rope)
         vf = _heads(cfg, p, tp.gather(v, -1, False), G, None, positions,
-                    True)
+                    rope)
         idx = [kv_index(cfg, T, r // per).to(h.device) for r in tp.ranks]
         ks = [kf.index_select(2, i) for i in idx]
         vs = [vf.index_select(2, i) for i in idx]
         kv = (kf, vf)
-    os = [attend(a, b, c).flatten(2)[..., r % per * n:(r % per + 1) * n]
-          for r, a, b, c in zip(tp.ranks, qs, ks, vs)]
+    os = []
+    for j, (r, a, b, c) in enumerate(zip(tp.ranks, qs, ks, vs)):
+        o = attend(a, b, c)
+        if post is not None:
+            o = post(j, o)
+        os.append(o.flatten(2)[..., r % per * n:(r % per + 1) * n])
     return tp_out(tp, p, os), kv
 
 
+def tp_out_whole(cfg: ArchConfig, tp, p: Attention,
+                 o: torch.Tensor) -> torch.Tensor:
+    """Row-parallel ``wo`` of o (B, S, H, hd) with every head, which every
+    rank holds (a decode step's merged attention): each rank's H hd/M
+    columns times its rows, summed."""
+    B, S = o.shape[:2]
+    n = cfg.n_heads * cfg.hdim // tp.M
+    o = o.reshape(B, S, -1)
+    return tp_out(tp, p, [o[..., r * n:(r + 1) * n] for r in tp.ranks])
+
+
+def head_group(tp, H: int) -> Tuple[int, int]:
+    """(ranks a head group, heads a group): T = gcd(H, M) groups of H/T
+    heads, group g on ranks g M/T .. (``tp_attention``'s split)."""
+    T = math.gcd(H, tp.M)
+    return tp.M // T, H // T
+
+
+def tp_cols(tp, p: nn.Module, leaf: str, x: torch.Tensor,
+            width: int) -> List[torch.Tensor]:
+    """Each rank's head group's columns of x @ p.leaf, a column-parallel
+    leaf of heads ``width`` columns each: the rank's own columns where a
+    group is one rank, else every rank's columns gathered and the
+    group's taken (as ``tp_attention`` gathers q)."""
+    cols = [xr @ w for xr, w in zip(tp.copy(x), tp.pieces(p, leaf))]
+    per, Hl = head_group(tp, cols[0].shape[-1] * tp.M // width)
+    if per == 1:
+        return cols
+    full = tp.gather(cols, -1, False)
+    n = Hl * width
+    return [full[..., r // per * n:(r // per + 1) * n] for r in tp.ranks]
+
+
+def tp_vec(tp, p: nn.Module, leaf: str, H: int) -> List[torch.Tensor]:
+    """Each rank's head group's piece of a per-head leaf (its first dim
+    H heads, or H heads' columns): its piece where the leaf is
+    tensor-parallel and a group is one rank, else the whole leaf (its
+    pieces gathered) sliced to the group."""
+    per, Hl = head_group(tp, H)
+    if leaf in getattr(p, "tp_dims", {}) and tp.M > 1:
+        pieces = tp.pieces(p, leaf)
+        if per == 1:
+            return pieces
+        full = tp.gather(pieces, 0, False)
+    else:
+        full = getattr(p, leaf)
+    n = full.shape[0] // H * Hl
+    return [full[r // per * n:(r // per + 1) * n] for r in tp.ranks]
+
+
+def rank_cols(tp, ys: List[torch.Tensor], H: int) -> List[torch.Tensor]:
+    """From each rank's head group's (..., H/T * w) output, the rank's
+    own (..., H w / M) columns (the row-parallel product's input)."""
+    per, _ = head_group(tp, H)
+    if per == 1:
+        return ys
+    n = ys[0].shape[-1] // per
+    return [y[..., r % per * n:(r % per + 1) * n]
+            for r, y in zip(tp.ranks, ys)]
+
+
 def tp_qkv_whole(cfg: ArchConfig, tp, p: Attention, h: torch.Tensor,
-                 positions: torch.Tensor
+                 positions: torch.Tensor, *, rope: bool = True
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v with every head, each rank's columns gathered (a decode
     step's few rows)."""
     q, k, v = (tp.gather(t, -1, True) for t in _tp_qkv(cfg, tp, p, h))
-    return (_heads(cfg, p, q, cfg.n_heads, "q_norm", positions, True),
-            _heads(cfg, p, k, cfg.n_kv_heads, "k_norm", positions, True),
-            _heads(cfg, p, v, cfg.n_kv_heads, None, positions, True))
+    return (_heads(cfg, p, q, cfg.n_heads, "q_norm", positions, rope),
+            _heads(cfg, p, k, cfg.n_kv_heads, "k_norm", positions, rope),
+            _heads(cfg, p, v, cfg.n_kv_heads, None, positions, rope))
+
+
+def attention_roles(name: str, p: Attention
+                    ) -> Dict[str, Tuple[int, bool, str]]:
+    """An attention's roles, one group: the projections (and biases)
+    column-parallel, ``wo`` row-parallel."""
+    out = {f"{name}.{leaf}": (1 if leaf[0] == "w" else 0, False, name)
+           for leaf in p.inits if leaf[0] in "wb" and leaf != "wo"}
+    out[f"{name}.wo"] = (0, False, name)
+    return out
+
+
+def mlp_roles(cfg: ArchConfig, name: str
+              ) -> Dict[str, Tuple[int, bool, str]]:
+    """An MLP's roles, one group: ``wi`` column-parallel (SwiGLU's gate
+    and up halves paired), ``wo`` row-parallel."""
+    return {f"{name}.wi": (1, cfg.act == "swiglu", name),
+            f"{name}.wo": (0, False, name)}
 
 
 def tp_softmax_xent(tp, parts: List[torch.Tensor], targets: torch.Tensor,
@@ -411,19 +466,20 @@ def tp_argmax(tp, parts: List[torch.Tensor]) -> torch.Tensor:
 def tp_decode_attention(tp, q: torch.Tensor, ks: List[torch.Tensor],
                         vs: List[torch.Tensor], kpos: List[torch.Tensor],
                         qpos: torch.Tensor, window: int,
-                        attn_impl: str = "flash") -> torch.Tensor:
+                        attn_impl: str = "flash", *,
+                        causal: bool = True) -> torch.Tensor:
     """One decode step of q (B, 1, H, hd), every head, against a cache
     split over the ranks' slots: each rank's packed partials over its
     slots, exchanged ((2 + hd) f32 a head), merged in rank order. The
     kernel's two steps for ``attn_impl`` "flash", else their plain
-    versions."""
+    versions. ``causal=False``: encdec's cross-attention."""
     from repro_torch.kernels import flash_attention as fa
     partials, merge = ((fa.flash_decode_partials, fa.flash_decode_merge)
                        if attn_impl == "flash" else
                        (fa.flash_decode_partials_ref,
                         fa.flash_decode_merge_ref))
     B, _, H, hd = q.shape
-    parts = [partials(q, k, v, causal=True, window=window, qpos=qpos,
+    parts = [partials(q, k, v, causal=causal, window=window, qpos=qpos,
                       kpos=kp)[None] for k, v, kp in zip(ks, vs, kpos)]
     part = tp.gather(parts, 0, True).contiguous()
     return merge(part, q.dtype).reshape(B, 1, H, hd)
@@ -452,9 +508,7 @@ def ring_layout(ks: torch.Tensor, vs: torch.Tensor, S: int,
 
     Returns (k, v, kpos) with kpos[slot] = stored position or -1.
     """
-    C = cache_len or (min(S, window) if window else S)
-    if window:
-        C = min(C, window) if S >= window else C
+    C = ring_slots(cache_len, S, window)
     dev = ks.device
     if S >= C:
         # keep the last C positions, rotated so slot = pos % C
@@ -471,6 +525,44 @@ def ring_layout(ks: torch.Tensor, vs: torch.Tensor, S: int,
                           torch.full((pad,), -1, dtype=torch.int32,
                                      device=dev)])
     return ks, vs, kpos
+
+
+def layout_cache(tp, kvs: List[Tuple[object, object]], S: int,
+                 cache_len: Optional[int], window: int, split: bool
+                 ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                            torch.Tensor]:
+    """Each layer's (k, v) of a prompt (tensors every rank holds, or
+    lists of each rank's kv heads, as ``tp_attention`` gives them), laid
+    out as the ring of ``ring_layout``: (ks, vs, kpos of the whole ring).
+    ``split``: one (L, B, C/M, G, hd) k and v a rank, its slots (from a
+    list of the ranks' kv heads, an exchange of heads for slots); else
+    one whole k and v with every kv head."""
+    lists = isinstance(kvs[0][0], list)
+    ks, vs, kpos = [], [], None
+    for j in range(len(kvs[0][0]) if lists else 1):
+        kj = torch.stack([kv[0][j] if lists else kv[0] for kv in kvs])
+        vj = torch.stack([kv[1][j] if lists else kv[1] for kv in kvs])
+        kj, vj, kpos = ring_layout(kj, vj, S, cache_len, window=window)
+        ks.append(kj)
+        vs.append(vj)
+    if not split:
+        k = ks[0] if len(ks) == 1 else tp.gather(ks, 3, True)
+        v = vs[0] if len(vs) == 1 else tp.gather(vs, 3, True)
+        return [k.contiguous()], [v.contiguous()], kpos
+    if lists:
+        ks, vs = tp.to_slots(ks, 3, 2), tp.to_slots(vs, 3, 2)
+    else:
+        ks, vs = tp.slice(ks[0], 2), tp.slice(vs[0], 2)
+    return ([k.contiguous() for k in ks], [v.contiguous() for v in vs],
+            kpos)
+
+
+def ring_slots(cache_len: Optional[int], S: int, window: int) -> int:
+    """The slots of ``ring_layout``'s ring for a prompt of S."""
+    C = cache_len or (min(S, window) if window else S)
+    if window and S >= window:
+        C = min(C, window)
+    return C
 
 
 def run_layers(body, layers, x: torch.Tensor, *args,
@@ -497,13 +589,17 @@ class DecodeCache:
 
 @dataclasses.dataclass
 class SplitCache:
-    """The KV cache split over the 'model' ranks' slots (JAX's
+    """A family's cache as the 'model' ranks hold it under tensor
+    parallelism: ``parts``, one cache of the family's type a rank this
+    process runs. The KV ring splits over the ranks' slots (JAX's
     ``cache_seq`` -> 'model'): rank r holds slots r C .. (r + 1) C - 1 of
-    the S_max-slot ring, C = S_max / M, every kv head. ``parts``: one
-    ``DecodeCache`` of C slots a rank this process runs."""
+    the S_max-slot ring, C = S_max / M, every kv head (``slots`` =
+    S_max); ``slots`` 0: each part holds the whole ring (it does not
+    divide, or the family has none). A recurrent state holds the rank's
+    heads."""
 
-    parts: List[DecodeCache]
-    slots: int               # S_max
+    parts: List[object]
+    slots: int               # S_max, or 0: not split
 
 
 class TransformerLM(nn.Module):
@@ -541,25 +637,21 @@ class TransformerLM(nn.Module):
 
     def tp_roles(self) -> Dict[str, Tuple[int, bool, str]]:
         """The leaves that may run tensor-parallel over 'model'
-        (``sharding.tp``): name -> (dim split, paired, group). The dense
-        family's attention, MLP and vocab; none for the other families,
-        which keep storage sharding."""
-        if self.cfg.family != "dense":
-            return {}
+        (``sharding.tp``): name -> (dim split, paired, group). The
+        vocab's and each layer's (``block_roles``)."""
         out = {"embed": (0, False, "vocab")}
         if not self.cfg.tie_embeddings:
             out["lm_head"] = (1, False, "vocab")
-        swiglu = self.cfg.act == "swiglu"
         for i, blk in enumerate(self.layers):
-            a = f"layers.{i}.attn"
-            for leaf in blk.attn.inits:
-                if leaf[0] in "wb" and leaf != "wo":
-                    out[f"{a}.{leaf}"] = (1 if leaf[0] == "w" else 0, False, a)
-            out[f"{a}.wo"] = (0, False, a)
-            m = f"layers.{i}.mlp"
-            out[f"{m}.wi"] = (1, swiglu, m)
-            out[f"{m}.wo"] = (0, False, m)
+            out.update(self.block_roles(f"layers.{i}", blk))
         return out
+
+    def block_roles(self, name: str, blk: nn.Module
+                    ) -> Dict[str, Tuple[int, bool, str]]:
+        """One layer's roles: the attention and the MLP; the families
+        with other blocks override it."""
+        return {**attention_roles(f"{name}.attn", blk.attn),
+                **mlp_roles(self.cfg, f"{name}.mlp")}
 
     def make_block(self, device: torch.device) -> nn.Module:
         """One layer's parameter modules; subclasses return their own.
@@ -623,6 +715,11 @@ class TransformerLM(nn.Module):
                            v=cm.shape_struct(shp, cfg.tdtype),
                            kpos=cm.shape_struct((S_max,), torch.int32))
 
+    def state_module(self) -> Optional[nn.Module]:
+        """The module whose tensor parallelism splits the cache's
+        ``heads`` dim (a recurrent state's), None where it has none."""
+        return None
+
     def cache_axes(self) -> "DecodeCache":
         ax = ("layers", "batch", "cache_seq", "kv_heads", None)
         return DecodeCache(k=ax, v=ax, kpos=(None,))
@@ -669,15 +766,13 @@ class TransformerLM(nn.Module):
         return tp.reduce(outs)
 
     def attention(self, p: Attention, h: torch.Tensor,
-                  positions: torch.Tensor, attend) -> Tuple[torch.Tensor,
-                                                            object]:
+                  positions: torch.Tensor, attend, *, rope: bool = True
+                  ) -> Tuple[torch.Tensor, object]:
         """The attention block of the normed input h: (output, k/v as
         the cache takes them). ``attend(q, k, v)`` is the attention
         call."""
-        if self.tp is not None and tp_on(p):
-            return tp_attention(self.cfg, self.tp, p, h, positions, attend)
-        q, k, v = project_qkv(self.cfg, p, h, positions)
-        return attn_out(p, attend(q, k, v)), (k, v)
+        return tp_attention(self.cfg, group_of(self, p), p, h, positions,
+                            attend, rope=rope)
 
     def layer_body(self, p: Block, x: torch.Tensor,
                    positions: torch.Tensor) -> torch.Tensor:
@@ -692,9 +787,7 @@ class TransformerLM(nn.Module):
     def ffn(self, p: nn.Module, h: torch.Tensor) -> torch.Tensor:
         """The layer's feed-forward block on its normed input; the moe
         family overrides it."""
-        if self.tp is not None and tp_on(p.mlp):
-            return tp_mlp(self.cfg, self.tp, p.mlp, h)
-        return mlp(self.cfg, p.mlp, h)
+        return tp_mlp(self.cfg, group_of(self, p.mlp), p.mlp, h)
 
     def vocab_tp(self) -> bool:
         return self.tp is not None and "embed" in self.tp_dims
@@ -738,16 +831,22 @@ class TransformerLM(nn.Module):
         return run_layers(self.layer_body, self.layers, x, positions,
                           remat=remat)
 
-    def logits(self, batch: Dict[str, torch.Tensor], *,
+    def hidden(self, batch: Dict[str, torch.Tensor], *,
                remat: bool = True) -> torch.Tensor:
-        """The batch's (B, S) tokens -> (B, S, padded vocab) logits, with
-        gradients when grad mode is on; the encdec and vlm families
-        override it to read their frames or patches."""
+        """The last layer's output (B, S', d) ahead of the final norm;
+        the encdec and vlm families override it to read their frames or
+        patches."""
         tokens = batch["tokens"]
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=tokens.device)
-        x = self.backbone(self.embed_tokens(tokens), positions, remat=remat)
-        return self.unembed(x)
+        return self.backbone(self.embed_tokens(tokens), positions,
+                             remat=remat)
+
+    def logits(self, batch: Dict[str, torch.Tensor], *,
+               remat: bool = True) -> torch.Tensor:
+        """The batch's (B, S) tokens -> (B, S', padded vocab) logits, with
+        gradients when grad mode is on."""
+        return self.unembed(self.hidden(batch, remat=remat))
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -765,11 +864,9 @@ class TransformerLM(nn.Module):
         mask = torch.ones(tokens.shape, dtype=torch.float32,
                           device=tokens.device)
         mask[:, -1] = 0.0
-        if self.vocab_tp():  # the dense family: vocab-parallel
-            positions = torch.arange(tokens.shape[1], dtype=torch.int32,
-                                     device=tokens.device)
-            x = self.backbone(self.embed_tokens(tokens), positions,
-                              remat=remat)
+        if self.vocab_tp():
+            x = self.hidden(batch, remat=remat)
+            x = x[:, x.shape[1] - tokens.shape[1]:]
             loss, denom = tp_softmax_xent(self.tp, self.logit_parts(x),
                                           targets, mask)
             return loss, {"loss": loss, "tokens": denom}
@@ -805,15 +902,17 @@ class TransformerLM(nn.Module):
         ``cache_len`` reserves headroom for subsequent decode steps; the
         cache layout is a ring keyed by slot = position % cache_len.
         """
-        return self.prefill_embedded(self.embed_tokens(batch["tokens"]),
-                                     cache_len)
-
-    def prefill_embedded(self, x: torch.Tensor, cache_len: Optional[int]
-                         ) -> Tuple[torch.Tensor, object]:
-        """``prefill`` from the embedded inputs x (B, S, d) at positions
-        0..S-1 (the vlm family prepends its patches)."""
-        parts, cache = self.prefill_split(x, cache_len)
+        parts, cache = self.prefill_parts(batch, cache_len)
         return self.join(parts), cache
+
+    @torch.no_grad()
+    def prefill_parts(self, batch: Dict[str, torch.Tensor],
+                      cache_len: Optional[int] = None
+                      ) -> Tuple[List[torch.Tensor], object]:
+        """``prefill`` with the logits as their parts (``prefill_split``);
+        each family reads its own inputs."""
+        return self.prefill_split(self.embed_tokens(batch["tokens"]),
+                                  cache_len)
 
     @torch.no_grad()
     def prefill_split(self, x: torch.Tensor, cache_len: Optional[int]
@@ -821,12 +920,10 @@ class TransformerLM(nn.Module):
         """Every layer over the embedded prompt x (B, S, d): (the logits'
         parts, ``logit_parts`` under vocab parallelism, else [the whole
         logits]; the cache). Attention is JAX's direct
-        ``attention_chunked`` call (``cm.chunked_call``). Under tensor
-        parallelism the cache is split over the ranks' slots
-        (``SplitCache``) where its length divides by M; else (and on one
-        device) it is whole (a ``DecodeCache``): each layer's k/v with
-        every kv head, laid out as the ring, then each rank's slots (from
-        a list of the ranks' kv heads, an exchange of heads for slots)."""
+        ``attention_chunked`` call (``cm.chunked_call``). On one device
+        the cache is a ``DecodeCache``; under tensor parallelism a
+        ``SplitCache``, split over the ranks' slots where the ring
+        divides by M, else one whole ring (``layout_cache``)."""
         cfg, tp = self.cfg, self.tp
         S = x.shape[1]
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
@@ -841,41 +938,25 @@ class TransformerLM(nn.Module):
             x = x + a
             x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
             kvs.append(kv)
-        parts = (self.logit_parts(x) if self.vocab_tp()
-                 else [self.unembed(x)])
-        lists = isinstance(kvs[0][0], list)
-        ks, vs, kpos = [], [], None
-        for j in range(len(kvs[0][0]) if lists else 1):
-            kj = torch.stack([kv[0][j] if lists else kv[0] for kv in kvs])
-            vj = torch.stack([kv[1][j] if lists else kv[1] for kv in kvs])
-            kj, vj, kpos = ring_layout(kj, vj, S, cache_len,
-                                       window=cfg.sliding_window)
-            ks.append(kj)
-            vs.append(vj)
-        C = kpos.shape[0]
-        if tp is None or C % tp.M:
-            k = ks[0] if not lists else tp.gather(ks, 3, True)
-            v = vs[0] if not lists else tp.gather(vs, 3, True)
-            return parts, DecodeCache(k=k.contiguous(), v=v.contiguous(),
-                                      kpos=kpos)
-        if lists:
-            ks, vs = tp.to_slots(ks, 3, 2), tp.to_slots(vs, 3, 2)
-        else:
-            ks, vs = tp.slice(ks[0], 2), tp.slice(vs[0], 2)
-        kps = tp.slice(kpos, 0)
+        parts = self.final_parts(x)
+        C = ring_slots(cache_len, S, cfg.sliding_window)
+        split = tp is not None and not C % tp.M
+        ks, vs, kpos = layout_cache(tp, kvs, S, cache_len,
+                                    cfg.sliding_window, split)
+        if tp is None:
+            return parts, DecodeCache(k=ks[0], v=vs[0], kpos=kpos)
+        if not split:
+            return parts, SplitCache([DecodeCache(k=ks[0], v=vs[0],
+                                                  kpos=kpos)], 0)
         return parts, SplitCache(
-            [DecodeCache(k=k.contiguous(), v=v.contiguous(),
-                         kpos=kp.contiguous())
-             for k, v, kp in zip(ks, vs, kps)], C)
+            [DecodeCache(k=k, v=v, kpos=kp.contiguous())
+             for k, v, kp in zip(ks, vs, tp.slice(kpos, 0))], C)
 
-    @torch.no_grad()
-    def decode_step(self, cache, tokens: torch.Tensor,
-                    pos: int) -> Tuple[torch.Tensor, object]:
-        """One decode step: tokens (B,1) at position ``pos``. Updates
-        ``cache`` in place and returns it with the (B,1,V) logits
-        (``decode_split`` runs the layers)."""
-        parts, cache = self.decode_split(cache, tokens, pos)
-        return self.join(parts), cache
+    def final_parts(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """The logits of the last layer's output x: ``logit_parts``
+        under vocab parallelism, else [the whole logits]."""
+        return (self.logit_parts(x) if self.vocab_tp()
+                else [self.unembed(x)])
 
     @torch.no_grad()
     def decode_split(self, cache, tokens: torch.Tensor, pos: int
@@ -887,50 +968,75 @@ class TransformerLM(nn.Module):
         pos % S_max, attention over each rank's slots is merged across
         the ranks (``tp_decode_attention``), and the output, MLP and
         logits are the ranks' pieces."""
-        cfg, tp = self.cfg, self.tp
+        cfg = self.cfg
         x = self.embed_tokens(tokens)
         qpos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-        split = isinstance(cache, SplitCache)
-        if split:
-            C = cache.slots // tp.M
+        slot = self.mark_slot(cache, pos)
+        for i, p in enumerate(self.layers):
+            x = x + self.decode_attention(p.attn, apply_norm(cfg, p.ln1, x),
+                                          cache, i, slot, qpos)
+            x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
+        return self.final_parts(x), cache
+
+    def mark_slot(self, cache, pos: int) -> Tuple[int, List[int]]:
+        """Record position ``pos`` in the ring's slot pos % S_max: (the
+        slot, within the rank's run where the ring is split; the indices
+        of the parts that hold it, [] for a whole ring)."""
+        if isinstance(cache, SplitCache) and cache.slots:
+            C = cache.slots // self.tp.M
             w = pos % cache.slots
-            mine = [j for j, r in enumerate(tp.ranks) if r == w // C]
+            mine = [j for j, r in enumerate(self.tp.ranks) if r == w // C]
             for j in mine:
                 cache.parts[j].kpos[w % C] = pos
+            return w % C, mine
+        whole = cache.parts[0] if isinstance(cache, SplitCache) else cache
+        w = pos % whole.k.shape[2]
+        whole.kpos[w] = pos
+        if isinstance(cache, SplitCache):
+            for c in cache.parts[1:]:
+                c.kpos[w] = pos
+            return w, list(range(len(cache.parts)))
+        return w, []
+
+    def decode_attention(self, p: Attention, h: torch.Tensor, cache,
+                         i: int, slot: Tuple[int, List[int]],
+                         qpos: torch.Tensor, *, rope: bool = True,
+                         post=None) -> torch.Tensor:
+        """Layer i's self-attention of one decode step's normed input h,
+        through ``wo``, its k/v written into the ring at ``slot``
+        (``mark_slot``'s); ``post(o)`` is applied to the heads' output
+        (B, 1, H, hd), every head, before ``wo`` (hymba's norm)."""
+        cfg, tp, g = self.cfg, self.tp, group_of(self, p)
+        q, k, v = tp_qkv_whole(cfg, g, p, h, qpos, rope=rope)
+        w, mine = slot
+        if isinstance(cache, SplitCache):
+            for j in mine:
+                c = cache.parts[j]
+                c.k[i][:, w] = k[:, 0].to(c.k.dtype)
+                c.v[i][:, w] = v[:, 0].to(c.v.dtype)
         else:
-            w = pos % cache.k.shape[2]
-            cache.kpos[w] = pos
-        for i, p in enumerate(self.layers):
-            h = apply_norm(cfg, p.ln1, x)
-            if tp_on(p.attn):
-                q, k, v = tp_qkv_whole(cfg, tp, p.attn, h, qpos)
-            else:
-                q, k, v = project_qkv(cfg, p.attn, h, qpos)
-            if split:
-                for j in mine:
-                    c = cache.parts[j]
-                    c.k[i][:, w % C] = k[:, 0].to(c.k.dtype)
-                    c.v[i][:, w % C] = v[:, 0].to(c.v.dtype)
-                o = tp_decode_attention(
-                    tp, q, [c.k[i] for c in cache.parts],
-                    [c.v[i] for c in cache.parts],
-                    [c.kpos for c in cache.parts], qpos, cfg.sliding_window,
-                    self.attn_impl)
-            else:
-                cache.k[i][:, w] = k[:, 0].to(cache.k.dtype)
-                cache.v[i][:, w] = v[:, 0].to(cache.v.dtype)
-                o = cm.make_attention(self.attn_impl)(
-                    q, cache.k[i], cache.v[i], causal=True,
-                    window=cfg.sliding_window, qpos=qpos, kpos=cache.kpos)
-            if tp_on(p.attn):
-                B = o.shape[0]
-                n = cfg.n_heads * cfg.hdim // tp.M
-                o = o.reshape(B, 1, -1)
-                x = x + tp_out(tp, p.attn,
-                               [o[..., r * n:(r + 1) * n] for r in tp.ranks])
-            else:
-                x = x + attn_out(p.attn, o)
-            x = x + self.ffn(p, apply_norm(cfg, p.ln2, x))
-        parts = (self.logit_parts(x) if self.vocab_tp()
-                 else [self.unembed(x)])
-        return parts, cache
+            cache.k[i][:, w] = k[:, 0].to(cache.k.dtype)
+            cache.v[i][:, w] = v[:, 0].to(cache.v.dtype)
+        if isinstance(cache, SplitCache) and cache.slots:
+            o = tp_decode_attention(
+                tp, q, [c.k[i] for c in cache.parts],
+                [c.v[i] for c in cache.parts],
+                [c.kpos for c in cache.parts], qpos, cfg.sliding_window,
+                self.attn_impl)
+        else:
+            c = cache.parts[0] if isinstance(cache, SplitCache) else cache
+            o = cm.make_attention(self.attn_impl)(
+                q, c.k[i], c.v[i], causal=True, window=cfg.sliding_window,
+                qpos=qpos, kpos=c.kpos)
+        if post is not None:
+            o = post(o)
+        return tp_out_whole(cfg, g, p, o)
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens: torch.Tensor,
+                    pos: int) -> Tuple[torch.Tensor, object]:
+        """One decode step: tokens (B,1) at position ``pos``. Updates
+        ``cache`` in place and returns it with the (B,1,V) logits
+        (``decode_split`` runs the layers)."""
+        parts, cache = self.decode_split(cache, tokens, pos)
+        return self.join(parts), cache

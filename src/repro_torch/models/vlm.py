@@ -8,7 +8,7 @@ step after a prompt of P text tokens is at position vis_tokens + P + i.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -16,8 +16,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, ShapeCell
 from repro_torch.device import DeviceLike
 from repro_torch.models import common as cm
-from repro_torch.models.transformer import (DecodeCache, TransformerLM,
-                                            _Params)
+from repro_torch.models.transformer import TransformerLM, _Params
 
 
 class Projector(_Params):
@@ -35,7 +34,9 @@ class Projector(_Params):
 
 class VlmLM(TransformerLM):
     """Patch-prefix VLM over the dense transformer backbone; decode_step is
-    ``TransformerLM``'s."""
+    ``TransformerLM``'s. Under tensor parallelism the backbone and vocab
+    run as the dense family's; the projector stays whole (``vis`` ->
+    None), its compute repeated on every 'model' rank."""
 
     def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
                  attn_impl: str = "flash"):
@@ -77,20 +78,20 @@ class VlmLM(TransformerLM):
         prefix = self.project_patches(batch["patches"])
         return torch.cat([prefix.to(text.dtype), text], dim=1)
 
-    def logits(self, batch: Dict[str, torch.Tensor], *,
+    def hidden(self, batch: Dict[str, torch.Tensor], *,
                remat: bool = True) -> torch.Tensor:
-        """Logits over [prefix, text], (B, vis_tokens + S, V); ``loss``
-        (``TransformerLM``'s) reads the last S, the text."""
+        """The backbone over [prefix, text], (B, vis_tokens + S, d); the
+        logits and ``loss`` (``TransformerLM``'s) read the last S, the
+        text."""
         x = self._embed_multimodal(batch)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
-        return self.unembed(self.backbone(x, positions, remat=remat))
+        return self.backbone(x, positions, remat=remat)
 
     @torch.no_grad()
-    def prefill(self, batch: Dict[str, torch.Tensor],
-                cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, DecodeCache]:
+    def prefill_parts(self, batch: Dict[str, torch.Tensor],
+                      cache_len: Optional[int] = None
+                      ) -> Tuple[List[torch.Tensor], object]:
         """Prefix + prompt in one pass; the cache covers both, so
         ``cache_len`` counts the prefix too."""
-        return self.prefill_embedded(self._embed_multimodal(batch),
-                                     cache_len)
+        return self.prefill_split(self._embed_multimodal(batch), cache_len)

@@ -4,32 +4,38 @@ rules, the counterpart of JAX's serving steps jitted with the shardings
 of ``tree_shardings`` (``repro/launch/dryrun.py::lower_cell``).
 
 A serving rank holds
-- the dense family's tensor-parallel leaves (``sharding.tp``) as its
-  pieces over 'model' and every other weight whole (``place(...,
-  serving=True)``): each layer runs on the rank's heads, d_ff columns and
-  vocab rows, the partial products summed over 'model';
+- every weight as its piece over the mesh axes the rules split it on
+  (``place``, as JAX's serving steps take ``param_shardings``): the
+  tensor-parallel leaves (``sharding.tp``, every family's attention,
+  MLP, vocab and its own head blocks) as their pieces over 'model', the
+  MoE experts as its E/M experts (``moe_ep``), every other split leaf
+  gathered where the layer reads it;
 - its rows of the batch, split over the batch axes where they divide;
 - its slots of the KV cache: JAX's ``cache_seq`` -> 'model' splits the
   S_max-slot ring into M runs of S_max/M slots, every kv head
-  (``transformer.SplitCache``). The new token's k/v go to the rank that
-  holds slot pos % S_max; each rank runs the split decode kernel over its
-  slots for every head and the ranks merge their partials
+  (``transformer.SplitCache``; encdec's cross K/V too), and its heads of
+  a recurrent state (rwkv6's, hymba's SSM), as ``heads`` -> 'model'
+  splits them. The new token's k/v go to the rank that holds slot
+  pos % S_max; each rank runs the split decode kernel over its slots
+  for every head and the ranks merge their partials
   (``transformer.tp_decode_attention``).
 
-The greedy token is the best over the ranks' vocab columns
-(``transformer.tp_argmax``). The other families, which keep storage
-sharding, run the single-device steps under the rules (the MoE FFN
-expert-parallel), each rank with its rows and every weight whole.
+Each layer runs on the rank's heads, d_ff columns and vocab rows, the
+partial products summed over 'model'. The MoE FFN runs expert-parallel
+at prefill (the all-to-all, where the sequence splits over 'model') and,
+at a decode step, on each rank's E/M experts' rows of the dense dispatch,
+summed over 'model' (JAX's fallback for S % M). The greedy token is the
+best over the ranks' vocab columns (``transformer.tp_argmax``).
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models import common as cm
-from repro_torch.models.transformer import (DecodeCache, SplitCache,
-                                            tp_argmax)
+from repro_torch.models.transformer import SplitCache, tp_argmax, tp_on
 from repro_torch.sharding import collectives as col
 from repro_torch.sharding.params import batch_axes, place
 from repro_torch.sharding.partition import Rules, use_rules
@@ -43,7 +49,7 @@ class ShardedServing:
     def __init__(self, model, mesh, rules: Rules):
         self.model, self.mesh, self.rules = model, mesh, rules
         self.batch = batch_axes(mesh, rules)
-        self.plan = place(model, mesh, rules, serving=True)
+        self.plan = place(model, mesh, rules)
         self.tp = model.tp
 
     def rows(self, x: torch.Tensor) -> torch.Tensor:
@@ -69,8 +75,7 @@ class ShardedServing:
         with use_rules(self.mesh, self.rules), torch.no_grad():
             if self.tp is None:
                 return make_prefill_step(self.model, cache_len)(batch)
-            parts, cache = self.model.prefill_split(
-                self.model.embed_tokens(batch["tokens"]), cache_len)
+            parts, cache = self.model.prefill_parts(batch, cache_len)
             return self._next(parts), cache
 
     def decode(self, cache: Any, tokens: torch.Tensor, pos: int
@@ -92,16 +97,32 @@ class ShardedServing:
 
     def cache_specs(self, B: int, S_max: int) -> Any:
         """The rank's cache for B rows and an S_max-slot ring, on ``meta``
-        (the dry run's input)."""
+        (the dry run's input), as ``prefill`` lays it out: the ring's
+        ``cache_seq`` dim split over 'model' where every ring divides by
+        M, a state's ``heads`` dim the rank's heads."""
         full = self.model.cache_specs(B, S_max)
-        if self.tp is None or S_max % self.tp.M:
+        if self.tp is None:
             return full
-        C = S_max // self.tp.M
-        cfg = self.model.cfg
-        shp = (cfg.n_layers, B, C, cfg.n_kv_heads, cfg.hdim)
-        return SplitCache([DecodeCache(
-            k=cm.shape_struct(shp, cfg.tdtype),
-            v=cm.shape_struct(shp, cfg.tdtype),
-            kpos=cm.shape_struct((C,), torch.int32))
-            for _ in self.tp.ranks], S_max)
-
+        model, M = self.model, self.tp.M
+        axes = {f.name: tuple(getattr(model.cache_axes(), f.name))
+                for f in dataclasses.fields(full)}
+        seq = [getattr(full, f).shape[ax.index("cache_seq")]
+               for f, ax in axes.items() if "cache_seq" in ax]
+        split = bool(seq) and not any(n % M for n in seq)
+        H = model.cfg.n_heads
+        state = model.state_module()
+        heads = (H // math.gcd(H, M) if state is not None and tp_on(state)
+                 else H)
+        out = {}
+        for f, ax in axes.items():
+            t = getattr(full, f)
+            shape = list(t.shape)
+            if split and ("cache_seq" in ax or f == "kpos"):
+                i = ax.index("cache_seq") if "cache_seq" in ax else 0
+                shape[i] //= M
+            if "heads" in ax:
+                shape[ax.index("heads")] = heads
+            out[f] = torch.empty(shape, dtype=t.dtype, device="meta")
+        part = type(full)(**out)
+        return SplitCache([part for _ in self.tp.ranks],
+                          S_max if split else 0)

@@ -10,23 +10,27 @@ dim). A parameter split over mesh axes is stored as this rank's piece
 all-gathers it whenever the model reads it: just before each layer's
 compute, and again in the remat recompute of the backward. The gathered
 tensor is a plain tensor, so the kernels' wrappers see what they see on
-one device.
+one device. Training and serving place alike, as JAX's steps take
+``param_shardings`` for every weight: a serving rank holds its pieces
+too, and serving has no backward.
 
 The 'model' axis, which GSPMD derives from the rules (``qkv``, ``heads``,
-``mlp``, ``vocab`` -> 'model'), is tensor parallelism for the dense
-family: ``tp.tp_leaves`` names the leaves, which keep their piece over
-'model' for compute (``Placement.tp``) and are gathered over the other
-axes only; the model then runs on the rank's heads, d_ff columns and
-vocab rows (``models.transformer``). Every other leaf split over 'model'
-is storage sharding: the ranks of a 'model' group compute the same thing
-after the gather, each on its data rank's rows, so the gradient of the
-gathered tensor is whole on each of them and each keeps its piece
-(``GatherDim`` with ``replicated``). A parameter split over a batch axis
-(``fsdp`` archs: 'embed' -> 'data') is gathered the same way, but its
-ranks compute on different rows: the backward sums the pieces' gradients
-over that axis (a reduce-scatter). The MoE experts are the exception:
-``models.moe_ep`` reads their stored shard (``held_over``) and runs them
-expert-parallel.
+``mlp``, ``vocab`` -> 'model'), is tensor parallelism for every family:
+``tp.tp_leaves`` names the leaves, which keep their piece over 'model'
+for compute (``Placement.tp``) and are gathered over the other axes
+only; the model then runs on the rank's heads, d_ff columns and vocab
+rows (``models.transformer`` and each family's module). Every other leaf
+split over 'model' is storage sharding: the ranks of a 'model' group
+compute the same thing after the gather, each on its data rank's rows,
+so the gradient of the gathered tensor is whole on each of them and each
+keeps its piece (``GatherDim`` with ``replicated``). A parameter split
+over a batch axis (``fsdp`` archs: 'embed' -> 'data') is gathered the
+same way, but its ranks compute on different rows: the backward sums the
+pieces' gradients over that axis (a reduce-scatter). The MoE experts are
+the exception: ``models.moe_ep`` reads their stored shard
+(``held_over``), E/M experts a rank, expert-parallel where the sequence
+splits over 'model' and on the rank's experts' rows of the dense
+dispatch where it does not (a decode step).
 """
 from __future__ import annotations
 
@@ -134,15 +138,12 @@ def _owner(model: nn.Module, name: str) -> Tuple[nn.Module, str]:
 
 
 @torch.no_grad()
-def place(model: nn.Module, mesh, rules: Rules, *,
-          serving: bool = False) -> Dict[str, Placement]:
+def place(model: nn.Module, mesh, rules: Rules) -> Dict[str, Placement]:
     """Store this rank's piece of every parameter of ``model`` (in place)
     and gather it on use, but over 'model' for the tensor-parallel
     leaves, which the model then computes with (``model.tp``, a
-    ``tp.MeshTP``). ``serving``: only the tensor-parallel leaves are
-    split; the rest stay whole (a serving rank holds its weights
-    gathered). Returns the placements by ``state_dict`` name. Works on
-    ``meta`` with a ``MeshShape`` (this rank: index 0 on every axis),
+    ``tp.MeshTP``). Returns the placements by ``state_dict`` name. Works
+    on ``meta`` with a ``MeshShape`` (this rank: index 0 on every axis),
     which is how the dry run sizes a rank."""
     plan = placements(model.named_param_specs(), mesh, rules)
     leaves = tpm.tp_leaves(model, mesh, rules)
@@ -151,17 +152,17 @@ def place(model: nn.Module, mesh, rules: Rules, *,
     for name, pl in plan.items():
         if name in leaves:
             pl = plan[name] = dataclasses.replace(pl, tp=leaves[name])
-        elif serving or not pl.gathers:
+        elif not pl.gathers:
             continue
         owner, leaf = _owner(model, name)
         piece = getattr(owner, leaf).detach()
         for g in pl.gathers:
             if pl.tp is not None and tpm.AXIS in g.axes:
                 piece = tpm.piece(piece, pl.tp, M, r)
-            elif not serving:
+            else:
                 piece = col.chunk_dim(piece, mesh, g.axes, g.dim)
         setattr(owner, leaf, nn.Parameter(piece.clone()))
-        if pl.used() and not serving:
+        if pl.used():
             parametrize.register_parametrization(owner, leaf,
                                                  Gathered(mesh, pl.used()),
                                                  unsafe=True)

@@ -2,22 +2,32 @@
 
 JAX maps ``qkv``, ``heads``, ``mlp`` and ``vocab`` to 'model'
 (``partition.DEFAULT_RULES``) and GSPMD splits the products by them. The
-port does it by hand for the dense family (``TransformerLM.tp_roles``):
+port does it by hand for every family (each model's ``tp_roles``):
 
-- column-parallel: ``attn.wq``/``wk``/``wv`` and their biases, ``mlp.wi``;
-- row-parallel: ``attn.wo`` and ``mlp.wo``, whose partial products are
-  summed over 'model' (``reduce``);
+- column-parallel: the projections into heads (attention's
+  ``wq``/``wk``/``wv`` and biases, encdec's cross-attention, rwkv6's
+  ``wr``/``wk``/``wv``/``wg``/``wB``, hymba's SSM ``wx``/``wB``/``wC``)
+  and the MLPs' ``wi`` (arctic's dense residual, rwkv6's channel-mix
+  ``wk``);
+- by heads: the per-head leaves (rwkv6's ``w0``/``u`` and ``ln_x``,
+  hymba's ``attn_norm``, SSM ``norm``, ``wdt``/``a_log``/``dt_bias``);
+- row-parallel: every ``wo`` (rwkv6's channel-mix ``wv``), whose partial
+  products are summed over 'model' (``reduce``);
 - vocab-parallel: ``embed`` and ``lm_head`` (the lookup masked to the
   rank's rows and summed, the logits and the loss on the rank's columns).
 
+The MoE experts are not among them: they run expert-parallel
+(``models.moe_ep``), each rank on its E/M experts.
+
 A leaf goes tensor-parallel where the rules split its role's dim over
 'model' alone (``placements``, the divisibility fallback of
-``logical_to_spec``), and only with the rest of its group: the four
-attention projections (and biases) together, ``wi`` and ``wo`` together
-(``wi`` with whole gate and up halves, d_ff dividing by M), ``embed`` and
-``lm_head`` together. Elsewhere the leaf keeps storage sharding
-(``sharding.params``) and its compute repeats, as JAX's does where a dim
-does not divide.
+``logical_to_spec``), and only with the rest of its group: an
+attention's projections (and biases) together, ``wi`` and ``wo``
+together (``wi`` with whole gate and up halves, d_ff dividing by M),
+``embed`` and ``lm_head`` together. Elsewhere the leaf keeps storage
+sharding (``sharding.params``) and its compute repeats, as JAX's does
+where a dim does not divide (``WHOLE``, a group of one rank, runs the
+same model code there).
 
 SwiGLU's ``wi`` is (d, 2f), gate ‖ up. Rank r's piece is gate[:, r-th f/M]
 ‖ up[:, r-th f/M] (``piece``), so that each rank's SwiGLU pairs its own
@@ -83,18 +93,20 @@ def tp_leaves(model: nn.Module, mesh, rules: Rules) -> Dict[str, Role]:
             if ok[group]}
 
 
-#: the leaves a tensor-parallel attention holds whole but applies to the
-#: rank's heads only: each rank's gradient of them is a part, summed over
-#: 'model' (``train.sharded``)
-PARTIAL = ("q_norm", "k_norm")
+#: the leaves a tensor-parallel block may hold whole but apply to the
+#: rank's heads only (a per-head leaf whose heads do not divide by M):
+#: each rank's gradient of them is a part, summed over 'model'
+#: (``train.sharded``)
+PARTIAL = ("q_norm", "k_norm", "w0", "u", "wdt", "a_log", "dt_bias")
 
 
 def partial_leaves(model: nn.Module) -> set:
-    """The ``state_dict`` names of the ``PARTIAL`` leaves of the modules
-    that run tensor-parallel."""
+    """The ``state_dict`` names of the ``PARTIAL`` leaves held whole by
+    the modules that run tensor-parallel."""
     return {f"{name}.{leaf}" for name, mod in model.named_modules()
             if getattr(mod, "tp_dims", None)
-            for leaf in PARTIAL if leaf in getattr(mod, "inits", ())}
+            for leaf in PARTIAL if leaf in getattr(mod, "inits", ())
+            and leaf not in mod.tp_dims}
 
 
 def piece(full: torch.Tensor, role: Role, M: int, r: int) -> torch.Tensor:
@@ -176,6 +188,46 @@ class TPGroup:
         ``heads_dim``, rank r keeping the r-th piece along ``slots_dim``
         (an all_to_all on a mesh)."""
         raise NotImplementedError
+
+
+class Whole(TPGroup):
+    """One rank holding every leaf whole: a block whose group is not
+    tensor-parallel runs the tensor-parallel model code on it, its
+    compute repeated on every 'model' rank."""
+
+    M = 1
+    ranks = (0,)
+
+    def pieces(self, module, leaf):
+        return [getattr(module, leaf)]
+
+    def copy(self, x):
+        return [x]
+
+    def reduce(self, xs):
+        return xs[0]
+
+    def gather(self, xs, dim, replicated):
+        return xs[0]
+
+    def slice(self, x, dim):
+        return [x]
+
+    def max(self, xs):
+        return xs[0].detach()
+
+    def to_slots(self, xs, heads_dim, slots_dim):
+        return xs
+
+
+WHOLE = Whole()
+
+
+def group_of(model: nn.Module, p: nn.Module) -> TPGroup:
+    """The group module p's leaves run on: the model's where they are
+    tensor-parallel, else ``WHOLE``."""
+    return (model.tp if model.tp is not None and getattr(p, "tp_dims", None)
+            else WHOLE)
 
 
 class MeshTP(TPGroup):

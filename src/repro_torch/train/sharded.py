@@ -12,10 +12,13 @@ Each rank runs, per step:
 - the gradients summed over the batch axes by ``make_grad_allreduce``
   (hierarchical where the mesh has a 'pod' axis), in one flat f32 buffer,
   and divided by the number of batch ranks. A tensor-parallel leaf
-  (``sharding.tp``: the dense family's attention, MLP and vocab over
-  'model') has the gradient of its piece, summed over the batch axes
-  alone; the qk-norm scales of a tensor-parallel attention act on the
-  rank's heads only, so their gradients are summed over 'model' too;
+  (``sharding.tp``: every family's attention, MLP, vocab and head blocks
+  over 'model') has the gradient of its piece, summed over the batch
+  axes alone; the per-head leaves a tensor-parallel block holds whole
+  (``tp.PARTIAL``: the qk-norm scales, and rwkv6's ``w0``/``u`` and
+  hymba's ``wdt``/``a_log``/``dt_bias`` where the heads do not divide by
+  M) act on the rank's heads only, so their gradients are summed over
+  'model' too;
 - AdamW with ZeRO-1: each 'data' rank updates its slice of m, v and the
   parameter (the dim ``zero1_leaf_axes`` puts 'fsdp' on), then the slices
   are all-gathered over 'data'.

@@ -32,6 +32,7 @@ from repro_torch import mapreduce as mr  # noqa: E402
 from repro_torch.configs import ShapeCell, get_config  # noqa: E402
 from repro_torch.convert import params_to_numpy  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.moe import moe_ffn  # noqa: E402
 from repro_torch.sharding import MeshShape  # noqa: E402
 from repro_torch.train import (adamw_init, make_prefill_step,  # noqa: E402
@@ -46,8 +47,10 @@ import torch_mesh_ranks as ranks_mod  # noqa: E402
 
 WORLD = 8
 #: seconds for the whole group and the JAX process; past it every process
-#: is killed and the tests fail
-DEADLINE_S = 420
+#: is killed and the tests fail (the JAX process, which compiles every
+#: run's steps, took 371 s under the whole suite's load with its 9 train
+#: and 5 serving runs)
+DEADLINE_S = 600
 #: JAX's tolerance for the float collectives (test_multidevice.py:45)
 RTOL = 1e-6
 #: the jobs JAX's own mesh_mapreduce runs: for II (whose map reads the
@@ -71,7 +74,7 @@ JAX_STEP_RTOL = 1e-5
 #: the sharded serving run's logits against the single-device port's and
 #: JAX's (f32)
 SERVE_ATOL = 1e-4
-#: the runs whose dense leaves go tensor-parallel over 'model'
+#: the runs of the dense family
 TP_RUNS = ("flat", "pod", "layers", "tp24", "tp18")
 
 JAX_PROG = textwrap.dedent("""
@@ -140,7 +143,7 @@ JAX_PROG = textwrap.dedent("""
     from repro.sharding import tree_shardings
     from repro.train import OptConfig, TrainConfig, adamw_init, make_train_step
     from repro_torch.convert import params_to_numpy
-    from torch_mesh_ranks import STEP_OPT, STEP_RUNS, step_model, step_tokens
+    from torch_mesh_ranks import STEP_OPT, STEP_RUNS, step_batch, step_model
     for run, (arch, shape, names, n_micro, steps, _, over, *rest) in (
             STEP_RUNS.items()):
         rules = DEFAULT_RULES.updated(**(rest[0] if rest else {}))
@@ -155,7 +158,7 @@ JAX_PROG = textwrap.dedent("""
         psh = tree_shardings(mesh, rules, axes_tree(specs), shape_tree(specs))
         params = jax.device_put(params, psh)
         opt = adamw_init(params)
-        batch = {"tokens": jnp.asarray(step_tokens(run))}
+        batch = {k: jnp.asarray(v) for k, v in step_batch(run).items()}
         step = make_train_step(model, TrainConfig(
             n_micro=n_micro, opt=OptConfig(**dataclasses.asdict(STEP_OPT))))
         losses, norms = [], []
@@ -177,11 +180,13 @@ JAX_PROG = textwrap.dedent("""
     # the sharded serving runs: JAX's prefill and serve steps jitted with
     # the shardings of tree_shardings on the same meshes
     from repro.train import make_prefill_step, make_serve_step
-    from torch_mesh_ranks import SERVE_RUNS, serve_model, serve_tokens
-    for run, (arch, shape, names, _, P, steps, S_max) in SERVE_RUNS.items():
+    from torch_mesh_ranks import SERVE_RUNS, serve_batch, serve_model
+    for run, (arch, shape, names, _, P, steps, S_max, *over) in (
+            SERVE_RUNS.items()):
         mesh = jax.make_mesh(shape, names,
                              axis_types=(AxisType.Auto,) * len(names))
-        model = build_model(jconfigs.get_config(arch).smoke())
+        model = build_model(jconfigs.get_config(arch).smoke().scaled(
+            **(over[0] if over else {})))
         specs = model.param_specs()
         port = serve_model(run)
         params = jax.tree_util.tree_map(
@@ -190,14 +195,15 @@ JAX_PROG = textwrap.dedent("""
         psh = tree_shardings(mesh, DEFAULT_RULES, axes_tree(specs),
                              shape_tree(specs))
         params = jax.device_put(params, psh)
-        toks = jnp.asarray(serve_tokens(run))
+        batch = {k: jnp.asarray(v) for k, v in serve_batch(run).items()}
+        toks = batch["tokens"]
         cache_sh = tree_shardings(mesh, DEFAULT_RULES, model.cache_axes(),
                                   model.cache_specs(toks.shape[0], S_max))
         with jax.set_mesh(mesh), use_rules(mesh, DEFAULT_RULES):
             nxt, cache = jax.jit(make_prefill_step(model, cache_len=S_max),
                                  in_shardings=(psh, None),
                                  out_shardings=(None, cache_sh))(
-                params, {"tokens": toks})
+                params, batch)
             serve = jax.jit(make_serve_step(model),
                             in_shardings=(psh, cache_sh, None, None),
                             out_shardings=(None, None, cache_sh))
@@ -476,7 +482,8 @@ def _single_device(run):
     tcfg = ranks_mod.step_tcfg(run)
     step = make_train_step(model, tcfg)
     state = adamw_init(dict(model.named_parameters()))
-    batch = {"tokens": torch.from_numpy(ranks_mod.step_tokens(run))}
+    batch = {k: torch.from_numpy(v)
+             for k, v in ranks_mod.step_batch(run).items()}
     losses, norms = [], []
     for _ in range(ranks_mod.STEP_RUNS[run][4]):
         state, m = step(state, batch)
@@ -497,8 +504,9 @@ def _change_rel(got, want, p0):
 
 @pytest.mark.parametrize("run", sorted(ranks_mod.STEP_RUNS))
 def test_sharded_step_matches_the_single_device_step(runs, run):
-    """Three steps (two for the MoE runs) on the mesh stay within the
-    single-device step's tolerance: every rank ends with the same
+    """Three steps (two for the MoE and encdec runs, one for rwkv6's) on
+    the mesh stay within the single-device step's tolerance: every rank
+    ends with the same
     parameters; their change is the single-device change within
     STEPS_RTOL; the losses and the gradient norms agree (the norm shows
     a wrong gradient scale, which AdamW's update does not)."""
@@ -521,6 +529,9 @@ def test_sharded_step_matches_the_single_device_step(runs, run):
         # ZeRO-1 on the stacked layers dim: each data rank owns a layer
         assert layers == {f"layers.{i}.attn.{b}" for i in range(2)
                           for b in ("bq", "bk", "bv")}
+    elif run == "rwkv24":
+        # rwkv6's ln_x (64,) split over 'model' 4: the same rule
+        assert layers == {f"layers.{i}.att.ln_x" for i in range(2)}
     else:
         assert not layers
 
@@ -579,14 +590,17 @@ def test_sharded_step_collectives_equal_the_dry_run(runs, run):
 @pytest.mark.parametrize("run", sorted(ranks_mod.STEP_RUNS))
 def test_sharded_step_places_the_dense_family_tensor_parallel(runs, run):
     """The dense runs hold their attention, MLP and vocab leaves as
-    tensor-parallel pieces over 'model' (the norms stay whole); the MoE
-    family keeps storage sharding."""
+    tensor-parallel pieces over 'model' (the norms stay whole); every
+    run holds all of its family's roles so (at the smoke sizes every
+    group divides by M), never the MoE experts."""
     got, _ = runs
     leaves = set(got[0][f"step_{run}_tp_leaves"].tolist())
+    arch, *_, over = ranks_mod.STEP_RUNS[run][:7]
+    cfg = get_config(arch).smoke().scaled(**over)
+    assert leaves == set(build_model(cfg, device="meta").tp_roles())
+    assert not any(".moe." in n for n in leaves)
     if run not in TP_RUNS:
-        assert not leaves
         return
-    cfg = get_config(ranks_mod.STEP_RUNS[run][0]).smoke()
     per_layer = {"attn.wq", "attn.wk", "attn.wv", "attn.wo", "mlp.wi",
                  "mlp.wo"} | ({"attn.bq", "attn.bk", "attn.bv"}
                               if cfg.qkv_bias else set())
@@ -609,10 +623,11 @@ def _serve_rows(got, run, key):
 
 def _serve_single_device(run):
     """A serving run's tokens and decode logits on one device."""
-    _, _, _, _, P, steps, S_max = ranks_mod.SERVE_RUNS[run]
+    _, _, _, _, P, steps, S_max = ranks_mod.SERVE_RUNS[run][:7]
     model = ranks_mod.serve_model(run)
     nxt, cache = make_prefill_step(model, cache_len=S_max)(
-        {"tokens": torch.from_numpy(ranks_mod.serve_tokens(run))})
+        {k: torch.from_numpy(v)
+         for k, v in ranks_mod.serve_batch(run).items()})
     serve = make_serve_step(model)
     got, logits = [nxt], []
     for t in range(P, P + steps):
@@ -640,14 +655,24 @@ def test_sharded_serve_equals_single_device_and_jax(runs, run):
 
 @pytest.mark.parametrize("run", sorted(ranks_mod.SERVE_RUNS))
 def test_sharded_serve_splits_the_cache_over_model(runs, run):
-    """Each rank holds S_max/M slots of the cache; a decode step
-    exchanges the attention partials (an all-gather over 'model') and
-    sums the row-parallel products (all-reduces)."""
+    """Each rank holds S_max/M slots of the cache (and of encdec's cross
+    K/V, S_max/2 positions), H/M heads of rwkv6's state and E/M experts;
+    a decode step exchanges the attention partials or the vocab's best
+    (all-gathers over 'model') and sums the row-parallel products
+    (all-reduces)."""
     got, _ = runs
-    _, shape, names, *_, S_max = ranks_mod.SERVE_RUNS[run]
+    _, shape, names, *_ = ranks_mod.SERVE_RUNS[run]
+    S_max = ranks_mod.SERVE_RUNS[run][6]
+    cfg = ranks_mod.serve_cfg(run)
     M = dict(zip(names, shape))["model"]
+    want = {"slots": [S_max // M], "xslots": [S_max // 2 // M],
+            "heads": [cfg.n_heads // M], "experts": [cfg.n_experts // M]}
+    fam = {"dense": ("slots",), "moe": ("slots", "experts"),
+           "encdec": ("slots", "xslots"), "ssm": ("heads",)}[cfg.family]
     for r in range(WORLD):
-        assert got[r][f"{run}_slots"].tolist() == [S_max // M]
+        held = {k: got[r][f"{run}_{k}"].tolist() for k in want
+                if f"{run}_{k}" in got[r]}
+        assert held == {k: want[k] for k in fam}, (r, held)
         kinds = dict(zip(got[r][f"{run}_log_kind"].tolist(),
                          got[r][f"{run}_log_calls"].tolist()))
         assert kinds.get("all-gather", 0) > 0 and kinds.get(

@@ -24,12 +24,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
 from repro_torch import mapreduce as mr  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.launch import make_host_mesh  # noqa: E402
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import build_model, side_inputs  # noqa: E402
 from repro_torch.models.moe import Experts  # noqa: E402
 from repro_torch.models.moe_ep import moe_ffn_ep  # noqa: E402
 from repro_torch.sharding import DEFAULT_RULES, hint, use_rules  # noqa: E402
 from repro_torch.sharding import collectives as col  # noqa: E402
 from repro_torch.serve.sharded import ShardedServing  # noqa: E402
+from repro_torch.sharding.params import stored  # noqa: E402
 from repro_torch.train import OptConfig, TrainConfig  # noqa: E402
 from repro_torch.train.sharded import ShardedTraining  # noqa: E402
 
@@ -72,16 +73,37 @@ STEP_RUNS = {
     # do not divide: head groups of 2 ranks, q gathered (JAX's fallback)
     "tp24": ("qwen3-4b", (2, 4), ("data", "model"), 2, 3, (8, 32), {}),
     "tp18": ("qwen3-4b", (1, 8), ("data", "model"), 2, 3, (8, 32), {}),
+    # the other families tensor-parallel over 'model' 4 (the moe run
+    # above is dbrx's): whisper's encoder, decoder and cross-attention,
+    # rwkv6's time- and channel-mix on a head a rank
+    "encdec24": ("whisper-medium", (2, 4), ("data", "model"), 1, 2, (8, 32),
+                 {}),
+    # one step: AdamW's first update is lr * sign(g), and rwkv6's
+    # near-zero gradients flip sign under another f32 summation order, so
+    # its second step's gradient norm moves by ~1-2e-5 between any two
+    # orders (the ranks', one device's, JAX's; either GLA form)
+    "rwkv24": ("rwkv6-7b", (2, 4), ("data", "model"), 1, 1, (8, 32), {}),
 }
 #: the sharded serving runs: name -> (arch, mesh shape, axis names,
-#: requests, prompt length, decode steps, cache slots S_max), f32; on
-#: (2, 4) a rank's kv heads are gathered (G 2 < M 4) and the cache's
-#: slots sliced, on (4, 2) a rank's own kv head goes to the other rank's
-#: slots (an all_to_all)
+#: requests, prompt length, decode steps, cache slots S_max[, smoke
+#: overrides]), f32; on (2, 4) a rank's kv heads are gathered (G 2 < M 4)
+#: and the cache's slots sliced, on (4, 2) a rank's own kv head goes to
+#: the other rank's slots (an all_to_all). The moe run holds 2 of 8
+#: experts a rank (expert-parallel at prefill, the rank's experts' rows
+#: of the dense dispatch at decode; a capacity that drops nothing, so the
+#: single-device dispatch keeps the same pairs), the encdec run its slots
+#: of the self and cross K/V, the rwkv6 run a head of the state
 SERVE_RUNS = {"serve24": ("qwen3-4b", (2, 4), ("data", "model"), 4, 20, 8,
                           32),
               "serve42": ("qwen3-4b", (4, 2), ("data", "model"), 4, 20, 8,
-                          32)}
+                          32),
+              "serve_moe24": ("dbrx-132b", (2, 4), ("data", "model"), 4, 20,
+                              8, 32, dict(n_experts=8, moe_topk=2,
+                                          capacity_factor=8.0)),
+              "serve_encdec24": ("whisper-medium", (2, 4), ("data", "model"),
+                                 4, 20, 8, 32),
+              "serve_rwkv24": ("rwkv6-7b", (2, 4), ("data", "model"), 4, 20,
+                               8, 32)}
 STEP_OPT = OptConfig(lr=1e-3, warmup_steps=0)
 #: the seed of the runs' parameters (torch.Generator on the CPU)
 STEP_SEED = 0
@@ -125,6 +147,21 @@ def step_tokens(run):
     vocab = get_config(arch).smoke().scaled(**over).vocab
     return np.random.RandomState(0).randint(0, vocab, (B, S)).astype(
         np.int32)
+
+
+def with_side(arch, toks, n_frames):
+    """numpy batch of the tokens and the family's side inputs (encdec's
+    frames, n_frames of them, seed 3)."""
+    cfg = get_config(arch).smoke()
+    return dict(side_inputs(cfg, toks.shape[0], seed=3, n_frames=n_frames),
+                tokens=toks)
+
+
+def step_batch(run):
+    """The run's numpy batch: its tokens, and S frames for encdec (the
+    dry run's cell of the same shape)."""
+    arch, _, _, _, _, (B, S) = STEP_RUNS[run][:6]
+    return with_side(arch, step_tokens(run), S)
 
 
 def step_model(run):
@@ -188,7 +225,7 @@ def run_sharded_steps(rank, out):
         sharded = ShardedTraining(model, mesh, step_rules(run))
         state = sharded.init_opt_state(tcfg.opt.state_dtype)
         step = sharded.make_step(tcfg)
-        batch = {"tokens": torch.from_numpy(step_tokens(run))}
+        batch = {k: torch.from_numpy(v) for k, v in step_batch(run).items()}
         col.LOG.reset()
         losses, norms = [], []
         for _ in range(steps):
@@ -214,10 +251,15 @@ def run_sharded_steps(rank, out):
             out[f"step_{run}_param_{name}"] = t.numpy()
 
 
+def serve_cfg(run):
+    over = SERVE_RUNS[run][7] if len(SERVE_RUNS[run]) > 7 else {}
+    return get_config(SERVE_RUNS[run][0]).smoke().scaled(**over)
+
+
 def serve_model(run):
     """The serving run's model with its seeded parameters, f32, on the
     CPU."""
-    model = build_model(get_config(SERVE_RUNS[run][0]).smoke(), device="cpu")
+    model = build_model(serve_cfg(run), device="cpu")
     model.init_params(torch.Generator().manual_seed(STEP_SEED + 1))
     return model
 
@@ -229,16 +271,40 @@ def serve_tokens(run):
         np.int32)
 
 
+def serve_batch(run):
+    """The run's numpy prompt batch: its tokens, and S_max frames for
+    encdec (S_max / 2 cross K/V positions)."""
+    return with_side(SERVE_RUNS[run][0], serve_tokens(run),
+                     SERVE_RUNS[run][6])
+
+
+def rank_holds(serving, cache):
+    """What a serving rank holds: per cache part its ring's slots (and
+    encdec's cross K/V's), a state's heads; the experts of layer 0."""
+    out = {}
+    parts = cache.parts
+    if hasattr(parts[0], "k"):
+        out["slots"] = [c.k.shape[2] for c in parts]
+    if hasattr(parts[0], "xk"):
+        out["xslots"] = [c.xk.shape[2] for c in parts]
+    if hasattr(parts[0], "state"):
+        out["heads"] = [c.state.shape[2] for c in parts]
+    if serving.model.cfg.n_experts:
+        out["experts"] = [stored(serving.model, "layers.0.moe.wi").shape[0]]
+    return out
+
+
 def run_sharded_serve(rank, out):
     """Each SERVE_RUNS run on its mesh: the prefill, then greedy decode
     steps on the rank's rows; its tokens, each step's whole logits
     (gathered over 'model'), the cache slots it holds and the
     collectives of one decode step."""
-    for run, (_, shape, names, N, P, steps, S_max) in SERVE_RUNS.items():
+    for run, (_, shape, names, N, P, steps, S_max, *_) in SERVE_RUNS.items():
         mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
         serving = ShardedServing(serve_model(run), mesh, DEFAULT_RULES)
-        toks = serving.rows(torch.from_numpy(serve_tokens(run)))
-        nxt, cache = serving.prefill({"tokens": toks}, cache_len=S_max)
+        batch = {k: serving.rows(torch.from_numpy(v))
+                 for k, v in serve_batch(run).items()}
+        nxt, cache = serving.prefill(batch, cache_len=S_max)
         got, logits = [nxt], []
         for t in range(P, P + steps):
             col.LOG.reset()
@@ -248,7 +314,8 @@ def run_sharded_serve(rank, out):
             got.append(nxt)
         out[f"{run}_tokens"] = torch.cat(got, dim=1).numpy()
         out[f"{run}_logits"] = torch.stack(logits, dim=1).numpy()
-        out[f"{run}_slots"] = np.array([c.k.shape[2] for c in cache.parts])
+        for k, v in rank_holds(serving, cache).items():
+            out[f"{run}_{k}"] = np.array(v)
         out[f"{run}_tp"] = np.array(serving.tp is not None)
         keys = sorted(log["calls"])
         out[f"{run}_log_kind"] = np.array([k for k, _ in keys])
