@@ -68,7 +68,10 @@ Phases, each failing the run with a non-zero exit:
                the card could take: eager calls timed by CUDA events (ms)
                and the host's cost a call, and in CUDA graphs (device_ms);
                the chosen kernel and the simt kernel (the first design) in
-               turns in the same run
+               turns in the same run; at qwen3-4b's training shape (B 4 x
+               1024) also the forward plus the plain backward a training
+               step runs, and that backward alone, beside SDPA's forward
+               plus backward and its backward alone
   7. grad    - gradients through the kernels' autograd Functions (kernel
                forward, the caller's plain backward) against autograd of
                the plain functions, at the serving and training shapes and
@@ -100,7 +103,11 @@ Phases, each failing the run with a non-zero exit:
                moe_ffn at a capacity factor with no drops; at the config's
                1.25, in f32 on 4 x 256 tokens routed unevenly, the card
                equal to the CPU, the same pairs dropped; time and peak
-               memory
+               memory; the dense fallback at 'model' 1 (data_fallback),
+               B 4 x 1024 routed unevenly as 4 data ranks, bf16 and f32:
+               the pairs of the one-device dispatch of the whole batch
+               kept exactly, beside a control that dispatches each rank's
+               rows alone and must drop another count
   train_sharded - the sharded train step (train/sharded.py) at world size
                1 on NCCL, over a (1, 1) ('data', 'model') mesh: qwen3-4b
                at full width, 4 layers, B 4 x 1024, n_micro 2, through the
@@ -181,6 +188,7 @@ from repro_torch.obs import TelemetryConfig  # noqa: E402
 from repro_torch.serve.lm import serve  # noqa: E402
 from repro_torch.models.moe import Experts, moe_ffn  # noqa: E402
 from repro_torch.models.moe_ep import (moe_ffn_ep_virtual,  # noqa: E402
+                                       moe_ffn_fallback_virtual,
                                        moe_ffn_held)
 from repro_torch.models.rwkv6 import TimeMix  # noqa: E402
 from repro_torch.models.transformer import (Attention,  # noqa: E402
@@ -1993,6 +2001,55 @@ def gla_work(B, T, H, K, V, use_u, itemsize, chunk=gs.CHUNK):
     return nbytes, flops * B * H
 
 
+#: the flash shapes of phase 6 that are training shapes: no serving
+#: launches (so the kernels line's totals leave them out), and their
+#: backward timed too
+FLASH_TRAIN = ("qwen3_train",)
+
+
+def flash_backward_times(qkv, sdpa_kw, kw, nbytes, flops):
+    """At a training shape, eager calls timed by CUDA events, in turns,
+    twice: the port's attention as a training step runs it (the kernel's
+    forward, then autograd of the plain attention, ``FlashAttentionFn``)
+    and that backward alone, beside SDPA's forward plus backward and its
+    backward alone; the bound of forward plus backward: the forward's
+    bytes and those of a backward that reads q, k, v, o and do and writes
+    dq, dk and dv, and 14 D flops a (q, k) pair (the forward's 4, and 10
+    for the recompute of q k^T and the four products of the backward)."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in qkv]
+    do = torch.randn_like(qkv[0])
+    lib = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
+           for t in qkv]
+    lib_do = do.transpose(1, 2).contiguous()
+
+    def port():
+        return kops.flash_attention(*leaves, self_attention=True, **kw)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*lib, enable_gqa=True,
+                                              **sdpa_kw)
+
+    o, lib_o = port(), sdpa()
+    fns = {
+        "fwd_bwd": lambda: torch.autograd.grad(port(), leaves, do),
+        "plain_backward": lambda: torch.autograd.grad(
+            o, leaves, do, retain_graph=True),
+        "library_fwd_bwd": lambda: torch.autograd.grad(sdpa(), lib, lib_do),
+        "library_backward": lambda: torch.autograd.grad(
+            lib_o, lib, lib_do, retain_graph=True)}
+    runs = [{name: time_ms(fn, 10)[0] for name, fn in fns.items()}
+            for _ in range(2)]
+    B, Sq, H, D = qkv[0].shape
+    Sk, G = qkv[1].shape[1], qkv[1].shape[2]
+    b_ms, b_by = least_ms(
+        nbytes + 2 * (4 * B * Sq * H * D + 4 * B * Sk * G * D),
+        flops // 4 * 14)
+    times = {f"{name}_ms": min(r[name] for r in runs) for name in fns}
+    times.update({f"{name}_ms_runs": [r[name] for r in runs]
+                  for name in fns})
+    return dict(times, fwd_bwd_bound_ms=b_ms, fwd_bwd_bound_by=b_by)
+
+
 def phase_times():
     gen = torch.Generator(device=DEV).manual_seed(4)
     dt = torch.bfloat16
@@ -2001,6 +2058,7 @@ def phase_times():
     # calls per serving run, buffers, iters)
     qcfg, hcfg = get_config("qwen3-4b"), get_config("hymba-1.5b")
     wcfg, vcfg = get_config("whisper-medium"), get_config("internvl2-26b")
+    _, TB, TS = TRAIN["qwen3-4b"][:3]
     _, P, GEN = SERVE["qwen3-4b"]
     _, HP, HGEN = SERVE["hymba-1.5b"]
     VS = vcfg.vis_tokens + SERVE["internvl2-26b"][1]
@@ -2028,10 +2086,13 @@ def phase_times():
                             wcfg.encoder_layers, 2, 30),
         "internvl2_prefill": (vcfg, VS, VS, 0, True, ar(VS), ar(VS),
                               vcfg.n_layers, 2, 30),
+        # qwen3-4b's training shape (B 4 x 1024), no serving launches; its
+        # backward timed below (FLASH_TRAIN)
+        "qwen3_train": (qcfg, TS, TS, 0, True, ar(TS), ar(TS), 0, 2, 30),
     }
     for name, (cfg, Sq, Sk, window, causal, qpos, kpos, n_calls, nbuf,
                iters) in flash.items():
-        N = SERVE[cfg.name][0]
+        N = TB if name in FLASH_TRAIN else SERVE[cfg.name][0]
         H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
         bufs = [(rand((N, Sq, H, D), dt, gen), rand((N, Sk, G, D), dt, gen),
                  rand((N, Sk, G, D), dt, gen)) for _ in range(nbuf)]
@@ -2080,6 +2141,8 @@ def phase_times():
         nbytes, flops = flash_work(N, H, G, D, qpos, kpos, causal, window,
                                    2)
         b_ms, b_by = least_ms(nbytes, flops)
+        train = (flash_backward_times(bufs[0], sdpa_kw, kw, nbytes, flops)
+                 if name in FLASH_TRAIN else {})
         per[("flash_attention", name)] = dict(
             shape=[N, Sq, Sk, H, G, D], window=window, causal=causal,
             dtype="bfloat16",
@@ -2087,7 +2150,7 @@ def phase_times():
             n_split=(fa.decode_splits(N, G, Sk, n_sm())
                      if variant == "split" else None),
             **times, plain_ms=plain_ms, bound_ms=b_ms, bound_us=b_ms * 1e3, bound_by=b_by, bytes=nbytes,
-            flops=flops, launches_per_serving_run=n_calls)
+            flops=flops, launches_per_serving_run=n_calls, **train)
         emit(phase="times", kernel="flash_attention", at=name,
              **per[("flash_attention", name)])
         del bufs, sdpa_bufs
@@ -2722,6 +2785,12 @@ MOE_EP_SKEW = 1.5
 #: bf16 EP against bf16 dense (the same per-expert products, the expert
 #: rows in another order); f32 card against f32 CPU
 MOE_EP_TOL = {torch.bfloat16: (2e-2, 1e-2), torch.float32: (1e-4, 1e-3)}
+#: JAX's dense fallback at 'model' 1 on a batch split over data ranks:
+#: MOE_EP_SHAPE as this many virtual data ranks, each 1024 tokens, at the
+#: config's capacity factor and MOE_EP_SKEW's routing (global capacity
+#: 1280 an expert for 16384 pairs; a rank alone would have 384 for 4096)
+MOE_FALLBACK_RANKS = 4
+MOE_FALLBACK_CALLS = 3
 
 
 def moe_experts(cfg, dtype, seed):
@@ -2809,6 +2878,79 @@ def phase_moe_ep():
           f"moe_ep at capacity {cfg.capacity_factor}: card and CPU differ "
           f"by {err}, drops {dropped} vs {ref_dropped}")
     del e_cpu, x, out, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dtype in (torch.bfloat16, torch.float32):
+        moe_data_fallback(cfg, dtype)
+
+
+def moe_data_fallback(cfg, dtype):
+    """The dense fallback at 'model' 1 (``moe_ffn_fallback_virtual``):
+    MOE_FALLBACK_RANKS data ranks, each dispatching its rows after the
+    exchange of per-expert counts, against the one-device ``moe_ffn`` of
+    the whole batch (JAX's dispatch of the global batch): the same kept
+    pairs exactly, the output within MOE_EP_TOL; the control, each rank
+    dispatching its rows alone, must drop another count."""
+    D = MOE_FALLBACK_RANKS
+    e = moe_experts(cfg, dtype, 35)
+    gen = torch.Generator(device=DEV).manual_seed(36)
+    x = (torch.randn(*MOE_EP_SHAPE, cfg.d_model, device=DEV, generator=gen)
+         + MOE_EP_SKEW * torch.randn(cfg.d_model, device=DEV, generator=gen)
+         ).to(dtype)
+    T, k = MOE_EP_SHAPE[0] * MOE_EP_SHAPE[1], cfg.moe_topk
+    secs = {"fallback": [], "dense": []}
+
+    def run(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = (moe_ffn_fallback_virtual(cfg, e, x, D) if name == "fallback"
+               else moe_ffn(cfg, e, x))
+        torch.cuda.synchronize()
+        secs[name].append(time.perf_counter() - t0)
+        return got
+
+    def kept_of(xt):  # the pairs moe_ffn keeps of the tokens xt alone
+        _, topi, _ = moe_mod.route(cfg, e.router, xt)
+        order, _, keep = moe_mod.dispatch(
+            cfg, topi, moe_mod.capacity(cfg, xt.shape[0]))
+        return moe_mod.kept_pairs(order, keep, k)
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        out, aux, kept = run("fallback")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for name in ("dense", *("fallback",) * (MOE_FALLBACK_CALLS - 1),
+                     "dense"):
+            got = run(name)
+        dense, dense_aux = got
+        want = kept_of(x.reshape(T, -1))
+        local = torch.cat([kept_of(xr.reshape(-1, cfg.d_model))
+                           for xr in x.chunk(D)])
+    atol, rtol = MOE_EP_TOL[dtype]
+    err, ok = within(out, dense, atol, rtol)
+    kept_equal = bool(torch.equal(kept, want))
+    dropped, want_dropped = int((~kept).sum()), int((~want).sum())
+    local_dropped = int((~local).sum())
+    emit(phase="moe_ep", check="data_fallback", arch=MOE_EP_ARCH,
+         data_ranks=D, model_ranks=1, batch=MOE_EP_SHAPE[0],
+         seq_len=MOE_EP_SHAPE[1], dtype=str(dtype).split(".")[1],
+         capacity_factor=cfg.capacity_factor,
+         capacity=moe_mod.capacity(cfg, T),
+         rank_capacity=moe_mod.capacity(cfg, T // D), skew=MOE_EP_SKEW,
+         pairs=T * k, dropped=dropped, one_device_dropped=want_dropped,
+         kept_equal=kept_equal, control_dropped=local_dropped,
+         control_differs=local_dropped != want_dropped,
+         max_abs_err=err, atol=atol, rtol=rtol, within=ok, aux=float(aux),
+         one_device_aux=float(dense_aux), seconds=secs["fallback"],
+         one_device_seconds=secs["dense"], peak_mem_gb=peak,
+         reduced=["B 4 x 1024 tokens as 4 data ranks in one process"])
+    check(ok and kept_equal and dropped > 0,
+          f"moe_ep data_fallback ({dtype}): kept pairs equal {kept_equal}, "
+          f"dropped {dropped} vs {want_dropped}, error {err}")
+    check(local_dropped != want_dropped,
+          f"moe_ep data_fallback ({dtype}): the rank-local control drops "
+          f"{local_dropped} pairs, as many as the global dispatch")
+    del e, x, out, dense
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4031,7 +4173,9 @@ PER_CALL_KEYS = ("shape", "variant", "n_split", "ms", "host_us",
                  "device_ms", "simt_ms", "simt_host_us", "simt_device_ms",
                  "plain_ms", "library_ms", "library_host_us",
                  "library_device_ms", "bound_ms", "bound_by",
-                 "launches_per_serving_run")
+                 "launches_per_serving_run", "fwd_bwd_ms",
+                 "plain_backward_ms", "library_fwd_bwd_ms",
+                 "library_backward_ms", "fwd_bwd_bound_ms")
 
 
 def kernel_entry(kernel, source, replaces, launches, max_abs_err, per):

@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -106,20 +106,35 @@ def switch_aux(cfg: ArchConfig, probs: torch.Tensor, topi: torch.Tensor
     return E * torch.sum(density / topi.numel() * probs.mean(dim=0))
 
 
-def dispatch(cfg: ArchConfig, topi: torch.Tensor, C: int
+def dispatch(cfg: ArchConfig, topi: torch.Tensor, C: int,
+             offsets: Optional[torch.Tensor] = None,
+             rows: Optional[int] = None
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The (token, choice) pairs in expert order: (order, dest, keep), all
     (T*k,). ``order`` is the stable sort of the flattened choices by
     expert (pair ``order[i]`` = token ``order[i] // k``, choice ``order[i]
-    % k``); ``dest`` its slot ``e*C + rank`` in the expert buffer, or the
-    spill slot ``E*C`` where the rank reaches C (``keep`` False)."""
+    % k``). A pair is kept where its rank among the pairs to its expert,
+    after the ``offsets[e]`` (E,) pairs that earlier data ranks send to
+    that expert (none by default), is below C: JAX's rank in the global
+    batch. ``dest`` is its slot ``e*R + rank`` in an expert buffer of R =
+    ``rows`` (default C) rows an expert, or the spill slot ``E*R`` where
+    it is dropped (``keep`` False)."""
     E = cfg.n_experts
+    R = C if rows is None else rows
     es, order = torch.sort(topi.reshape(-1), stable=True)
     starts = torch.searchsorted(es, torch.arange(E, device=es.device))
     rank = torch.arange(es.numel(), device=es.device) - starts[es]
-    keep = rank < C
-    dest = torch.where(keep, es * C + rank, E * C)
+    keep = rank < C if offsets is None else rank + offsets[es] < C
+    dest = torch.where(keep, es * R + rank, E * R)
     return order, dest, keep
+
+
+def kept_pairs(order: torch.Tensor, keep: torch.Tensor, k: int
+               ) -> torch.Tensor:
+    """``dispatch``'s keep mask at (token, choice): (T, k) bool."""
+    out = torch.empty_like(keep)
+    out[order] = keep
+    return out.reshape(-1, k)
 
 
 def _to_experts(xt: torch.Tensor, ts: torch.Tensor, dest: torch.Tensor,
@@ -187,28 +202,39 @@ def expert_compute(cfg: ArchConfig, wi: torch.Tensor, wo: torch.Tensor,
     return torch.bmm(h, wo)
 
 
+def dense_experts(cfg: ArchConfig, wi: torch.Tensor, wo: torch.Tensor,
+                  xt: torch.Tensor, gates: torch.Tensor, topi: torch.Tensor,
+                  order: torch.Tensor, dest: torch.Tensor, keep: torch.Tensor,
+                  R: int) -> torch.Tensor:
+    """The dense dispatch of the tokens xt (T, d) over every expert, the
+    pairs placed by ``dispatch`` into a buffer of R rows an expert: (T, d)
+    in xt's dtype. The scatter and the combine go through ``PlainSpanFn``,
+    whose backward recomputes them with the same slots."""
+    E, k = cfg.n_experts, cfg.moe_topk
+    d = xt.shape[1]
+    # scatter tokens into the (E*R, d) expert buffer ("the shuffle"); the
+    # spill row E*R takes every dropped pair and is cut off
+    buf = PlainSpanFn.apply("moe_dispatch",
+                            functools.partial(_to_experts, rows=E * R + 1),
+                            xt, order // k, dest)
+    y = expert_compute(cfg, wi, wo, buf[:-1].reshape(E, R, d))
+    return PlainSpanFn.apply("moe_dispatch",
+                             functools.partial(_combine, dtype=xt.dtype),
+                             y.reshape(E * R, d), gates, order, dest, keep,
+                             topi)
+
+
 def moe_ffn(cfg: ArchConfig, p: Experts, x: torch.Tensor
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux loss). Sort-based dispatch."""
     B, S, d = x.shape
     T = B * S
-    E, k = cfg.n_experts, cfg.moe_topk
     C = capacity(cfg, T)
     xt = x.reshape(T, d)
     gates, topi, aux = route(cfg, p.router, xt)
     order, dest, keep = dispatch(cfg, topi, C)
-    ts = order // k
-
-    # scatter tokens into the (E*C, d) expert buffer ("the shuffle"); the
-    # spill row E*C takes every dropped pair and is cut off
-    buf = PlainSpanFn.apply("moe_dispatch",
-                            functools.partial(_to_experts, rows=E * C + 1),
-                            xt, ts, dest)
-    y = expert_compute(cfg, p.wi, p.wo, buf[:-1].reshape(E, C, d))
-    y = y.reshape(E * C, d)
-    out = PlainSpanFn.apply("moe_dispatch",
-                            functools.partial(_combine, dtype=x.dtype),
-                            y, gates, order, dest, keep, topi)
+    out = dense_experts(cfg, p.wi, p.wo, xt, gates, topi, order, dest, keep,
+                        C)
     return out.reshape(B, S, d), aux
 
 

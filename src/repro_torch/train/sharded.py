@@ -4,8 +4,9 @@
 ``opt_state_axes`` (``repro/launch/dryrun.py::lower_cell``).
 
 Each rank runs, per step:
-- its rows of the batch (the batch split over the batch axes, each rank's
-  rows split again into ``n_micro`` microbatches), through the model whose
+- its rows of each of the ``n_micro`` microbatches (microbatch m is rows
+  [m B/n, (m+1) B/n) of the global batch, split over the batch axes:
+  JAX's ``shard_map`` view of its scan), through the model whose
   parameters ``sharding.params.place`` stored as pieces and gathers per
   layer; the MoE FFN goes expert-parallel (``models.moe_ep``) under the
   rules;
@@ -139,7 +140,7 @@ class ShardedTraining:
 
     # ------------------------------------------------------------- step --
     def rows(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """This rank's rows of the global batch."""
+        """This rank's rows of the global batch (or of a microbatch)."""
         if not self.batch:
             return batch
         out = {}
@@ -231,10 +232,11 @@ class ShardedTraining:
 
     def grads(self, tcfg: TrainConfig, batch: Dict[str, torch.Tensor]):
         """The step's first half: (loss, metrics, gradients of the stored
-        pieces) on this rank's rows, under the rules."""
+        pieces) on this rank's rows of each microbatch of the global
+        batch, under the rules."""
         with use_rules(self.mesh, self.rules):
-            return accumulate_grads(self.model, self.params, tcfg,
-                                    self.rows(batch))
+            return accumulate_grads(self.model, self.params, tcfg, batch,
+                                    rows=self.rows)
 
     def apply(self, tcfg: TrainConfig, opt_state: Dict[str, Any], loss,
               metrics: Dict[str, torch.Tensor],

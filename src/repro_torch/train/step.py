@@ -53,13 +53,18 @@ def make_train_step(model, tcfg: TrainConfig = TrainConfig()) -> Callable:
 
 
 def accumulate_grads(model, params: Dict[str, torch.Tensor],
-                     tcfg: TrainConfig, batch: Dict[str, torch.Tensor]):
+                     tcfg: TrainConfig, batch: Dict[str, torch.Tensor],
+                     rows: Optional[Callable] = None):
     """(loss, metrics, {name: gradient}) of ``model.loss`` on ``batch``
     w.r.t. ``params`` (the tensors that hold the parameters), over
     ``tcfg.n_micro`` microbatches: the gradients in the param dtype for
-    one, else f32 sums divided by n_micro."""
+    one, else f32 sums divided by n_micro. Microbatch m is rows [m B/n,
+    (m+1) B/n) of the batch, as JAX's scan takes them; ``rows(mb)`` (a
+    sharded step's) gives the rows of each that this rank computes."""
 
     def grads_of(mb: Dict[str, torch.Tensor]):
+        if rows is not None:
+            mb = rows(mb)
         for p in params.values():
             p.grad = None
         loss, metrics = model.loss(mb, remat=tcfg.remat)

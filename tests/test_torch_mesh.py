@@ -1,6 +1,7 @@
 """The port's multi-rank layer against the JAX package: the hierarchical
 collectives, the MapReduce mesh shuffle (JoSS policies A and B), the
-expert-parallel MoE, the sharded train step (against the port's
+expert-parallel MoE and its dense fallback on the global batch, the
+sharded train step (against the port's
 single-device step and JAX's sharded step), whose collectives the dry run
 reckons byte for byte, tensor-parallel over 'model' for the dense family,
 and the sharded serving step with the KV cache split over 'model'.
@@ -33,7 +34,9 @@ from repro_torch.configs import ShapeCell, get_config  # noqa: E402
 from repro_torch.convert import params_to_numpy  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.models.moe import moe_ffn  # noqa: E402
+from repro_torch.models.moe import (capacity, dispatch,  # noqa: E402
+                                    moe_ffn, route)
+from repro_torch.models.moe_ep import moe_ffn_ep_virtual  # noqa: E402
 from repro_torch.sharding import MeshShape  # noqa: E402
 from repro_torch.train import (adamw_init, make_prefill_step,  # noqa: E402
                                make_serve_step, make_train_step)
@@ -120,9 +123,15 @@ JAX_PROG = textwrap.dedent("""
     import repro.configs as jconfigs
     from repro.models.moe_ep import moe_ffn_ep
     from repro.sharding import DEFAULT_RULES, use_rules
-    from torch_mesh_ranks import EP_CASES, EP_MESH, ep_cfg, ep_inputs
-    mesh = jax.make_mesh(*EP_MESH)
+    from jax.sharding import AxisType
+    from torch_mesh_ranks import (EP_CASES, EP_MESH, FALLBACK_MESH, ep_cfg,
+                                  ep_inputs)
     for case in EP_CASES:
+        # the fallback cases' dense dispatch under GSPMD needs auto axes
+        # (JAX 0.9's explicit ones refuse its sharding constraints)
+        mesh = (jax.make_mesh(*FALLBACK_MESH[case],
+                              axis_types=(AxisType.Auto,) * 2)
+                if case in FALLBACK_MESH else jax.make_mesh(*EP_MESH))
         cfg = ep_cfg(case, jconfigs)
         x, p, _ = ep_inputs(case)
         p = {k: jnp.asarray(v) for k, v in p.items()}
@@ -137,7 +146,6 @@ JAX_PROG = textwrap.dedent("""
     # under which the model's gathers do not resolve, so the axes are
     # GSPMD's auto ones, as the package was written for
     import dataclasses
-    from jax.sharding import AxisType
     from repro.models import build_model
     from repro.models.common import axes_tree, shape_tree
     from repro.sharding import tree_shardings
@@ -395,12 +403,13 @@ def test_hint_redistributes_a_dtensor_and_host_mesh(runs):
 
 
 # ------------------------------------------------- expert-parallel MoE --
-def _ep_rows(got, key):
-    """The (2, 4) mesh's EP output over the batch: data rank di's rows
-    (rank 4 di + m holds them, the same for every m)."""
+def _ep_rows(got, key, case="nodrop"):
+    """The case's EP output over the batch: data rank di's rows (ranks
+    M di ... M di + M - 1 hold them, the same for every model rank)."""
+    D, M = ranks_mod.ep_mesh(case)[0]
     for r in range(WORLD):
-        np.testing.assert_array_equal(got[r][key], got[r - r % 4][key])
-    return np.concatenate([got[4 * di][key] for di in range(2)])
+        np.testing.assert_array_equal(got[r][key], got[r - r % M][key])
+    return np.concatenate([got[M * di][key] for di in range(D)])
 
 
 def _dense(case, grads=False):
@@ -443,6 +452,39 @@ def test_moe_ep_drops_equal_jax(runs):
     _aux_close(got, want, "drops")
 
 
+@pytest.mark.parametrize("case", sorted(ranks_mod.FALLBACK_MESH))
+def test_moe_fallback_drops_equal_jax_global(runs, case):
+    """JAX's dense fallback under the rules, at 'model' 1 (m1_drops) and
+    at a decode step's one token with the experts split over 'model' 4
+    (held_drops): the ranks' rows, each dispatched after one all-gather
+    of the ranks' per-expert counts, equal JAX's dispatch of the global
+    batch and the port's own on one device, where about half of the
+    pairs drop; aux is JAX's. The control: each data rank's dispatch of
+    its own rows alone (the local capacity) leaves JAX's output."""
+    got, want = runs
+    key = f"ep_{case}_out"
+    out = _ep_rows(got, key, case)
+    x, p, _ = ranks_mod.port_experts(case)
+    cfg = ranks_mod.ep_cfg(case)
+    with torch.no_grad():
+        dense, _ = moe_ffn(cfg, p, x)
+        T = x.shape[0] * x.shape[1]
+        _, topi, _ = route(cfg, p.router, x.reshape(T, -1))
+        _, _, keep = dispatch(cfg, topi, capacity(cfg, T))
+        D = ranks_mod.ep_mesh(case)[0][0]
+        local = torch.cat([moe_ffn(cfg, p, xr)[0] for xr in x.chunk(D)])
+    assert 0 < int((~keep).sum()) < keep.numel()
+    np.testing.assert_allclose(out, want[key], atol=EP_ATOL, rtol=EP_RTOL)
+    np.testing.assert_allclose(out, dense.numpy(), atol=EP_ATOL,
+                               rtol=EP_RTOL)
+    assert not np.allclose(local.numpy(), want[key], atol=EP_ATOL,
+                           rtol=EP_RTOL)
+    _aux_close(got, want, case)
+    for r in range(WORLD):
+        assert int(got[r][f"ep_{case}_all_gather"]) == 1
+        assert int(got[r][f"ep_{case}_all_to_all"]) == 0
+
+
 def test_moe_ep_gradient_equals_dense(runs):
     """The EP backward (the exchanges' reverse, the sequence slice's
     gather) gives the dense path's gradients: x by data rank, the router
@@ -474,16 +516,74 @@ def test_moe_lm_runs_expert_parallel_under_the_rules(runs):
 
 
 # ------------------------------------------------- the sharded train step --
-def _single_device(run):
+#: the runs whose expert-parallel dispatch drops pairs: their single-
+#: device step runs each MoE layer's FFN as the mesh's D data x M model
+#: ranks do, in one process (``moe_ffn_ep_virtual`` on each data rank's
+#: rows of the microbatch, each rank's local capacity)
+EP_DROP_RUNS = ("moe24_micro",)
+#: the dropping runs' controls, single-device steps that drop other
+#: pairs: "local", each data rank's dense dispatch of its own rows alone
+#: (the port's fallback before the exchange); "old_rows", the
+#: microbatches the sharded step took before it took JAX's rows
+#: (``_old_rows``); "dense", the dense dispatch of each whole microbatch
+#: (for the expert-parallel run: its local capacities drop other pairs;
+#: there the old rows would not, since each rank's microbatch is the
+#: same blocks of B / (n D) rows in either layout, in other slots)
+CONTROLS = {"moe81_drops": "local", "moe81_micro": "old_rows",
+            "moe24_micro": "dense"}
+
+
+def _data_model(run):
+    """(|batch axes|, |model|) of a run's mesh."""
+    shape = ranks_mod.STEP_RUNS[run][1]
+    return int(np.prod(shape[:-1])), shape[-1]
+
+
+def _ffn_by_data_rank(model, D, M=None):
+    """Each MoE layer's FFN on the D data ranks' rows of its input, each
+    alone: the expert-parallel body of M ranks, or the dense dispatch
+    (M None)."""
+    cfg = model.cfg
+    assert not cfg.moe_dense_residual
+
+    def ffn(p, h):
+        return torch.cat([moe_ffn(cfg, p.moe, hr)[0] if M is None else
+                          moe_ffn_ep_virtual(cfg, p.moe, hr, M)[0]
+                          for hr in h.chunk(D)])
+
+    model.ffn = ffn
+
+
+def _old_rows(run):
+    """The row order under which the single-device step's microbatches,
+    split over the data ranks, hold what the sharded step's did before it
+    took JAX's rows: data rank r's block of the global batch, split into
+    n_micro pieces."""
+    _, _, _, n, _, (B, _) = ranks_mod.STEP_RUNS[run][:6]
+    D = _data_model(run)[0]
+    b = B // (n * D)
+    return [r * B // D + m * b + j for m in range(n) for r in range(D)
+            for j in range(b)]
+
+
+def _single_device(run, control=None):
     """The run's steps on one device, from the same parameters: (p0,
-    params, losses, gradient norms), the parameters by state_dict name."""
+    params, losses, gradient norms), the parameters by state_dict name;
+    ``control`` one of CONTROLS' layouts."""
     model = ranks_mod.step_model(run)
+    D, M = _data_model(run)
+    if control == "local":
+        _ffn_by_data_rank(model, D)
+    elif run in EP_DROP_RUNS and control != "dense":
+        _ffn_by_data_rank(model, D, M)
     p0 = {n: t.detach().numpy().copy() for n, t in model.named_parameters()}
     tcfg = ranks_mod.step_tcfg(run)
     step = make_train_step(model, tcfg)
     state = adamw_init(dict(model.named_parameters()))
     batch = {k: torch.from_numpy(v)
              for k, v in ranks_mod.step_batch(run).items()}
+    if control == "old_rows":
+        batch = {k: v[_old_rows(run)] for k, v in batch.items()}
     losses, norms = [], []
     for _ in range(ranks_mod.STEP_RUNS[run][4]):
         state, m = step(state, batch)
@@ -561,6 +661,20 @@ def test_sharded_step_matches_jax(runs, run):
                                    rtol=JAX_STEP_RTOL, err_msg=key)
 
 
+@pytest.mark.parametrize("run", sorted(CONTROLS))
+def test_sharded_step_drops_leave_their_control(runs, run):
+    """The dropping runs' controls (CONTROLS) drop other pairs: the
+    losses and gradient norms that the sharded step shares with the
+    single-device step and JAX's leave each control's by more than the
+    tolerances that hold them there."""
+    got, _ = runs
+    _, _, losses, norms = _single_device(run, CONTROLS[run])
+    assert not np.allclose(got[0][f"step_{run}_losses"], losses,
+                           rtol=JAX_STEP_RTOL)
+    assert not np.allclose(got[0][f"step_{run}_grad_norms"], norms,
+                           rtol=NORM_RTOL)
+
+
 def _jax_leaves(tree):
     return {jax.tree_util.keystr(path): np.asarray(leaf, np.float32)
             for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
@@ -592,12 +706,14 @@ def test_sharded_step_places_the_dense_family_tensor_parallel(runs, run):
     """The dense runs hold their attention, MLP and vocab leaves as
     tensor-parallel pieces over 'model' (the norms stay whole); every
     run holds all of its family's roles so (at the smoke sizes every
-    group divides by M), never the MoE experts."""
+    group divides by M; at 'model' 1 none, as nothing splits), never the
+    MoE experts."""
     got, _ = runs
     leaves = set(got[0][f"step_{run}_tp_leaves"].tolist())
     arch, *_, over = ranks_mod.STEP_RUNS[run][:7]
     cfg = get_config(arch).smoke().scaled(**over)
-    assert leaves == set(build_model(cfg, device="meta").tp_roles())
+    roles = set(build_model(cfg, device="meta").tp_roles())
+    assert leaves == (roles if _data_model(run)[1] > 1 else set())
     assert not any(".moe." in n for n in leaves)
     if run not in TP_RUNS:
         return

@@ -113,8 +113,11 @@ def test_production_plan_names_every_familys_groups(arch):
 #: figure over its first's. The moe config's base is (1, 8): at
 #: 'model' 1 JAX's MoE falls back to the dense dispatch on the global
 #: batch, its (E, C, d) buffer replicated over 'data' (every data rank
-#: computes every token's experts), where the port's data rank dispatches
-#: its own rows; at 'model' 8 both run expert-parallel
+#: computes every token's experts). The port's data rank keeps and drops
+#: JAX's pairs (``moe_ep.global_pairs``) but computes its own kept pairs
+#: only, in min(C, T / |data|) rows an expert, so its expert flops stay a
+#: fraction of JAX's compiled count by design; at 'model' 8 both run
+#: expert-parallel
 MESHES = ((8, 1), (2, 4))
 BASE = {"moe": (1, 8)}
 #: the cells: kind -> (seq_len, global batch), n_micro 1

@@ -47,9 +47,17 @@ MR_JOBS = ("WC", "II")
 #: expert-parallel MoE cases, JAX's test_moe_ep_matches_dense_dispatch
 #: recipe on a (2, 4) ('data', 'model') mesh (dbrx smoke with 8 experts,
 #: top-2): case -> (capacity factor, x's (B, S), x's seed); "drops" has
-#: local capacity 8 for 64 (token, choice) pairs a rank over 8 experts
-EP_CASES = {"nodrop": (8.0, (2, 32), 0), "drops": (0.5, (2, 128), 1)}
+#: local capacity 8 for 64 (token, choice) pairs a rank over 8 experts.
+#: The fallback cases run JAX's dense dispatch of the global batch, on
+#: their own meshes (FALLBACK_MESH): "m1_drops" at 'model' 1 (capacity
+#: 128 for the batch's 2048 pairs; 256 a rank, which alone would drop
+#: none), "held_drops" a decode step's one token on (2, 4), each rank's
+#: experts' rows of the buffer (capacity 128 for 2048 pairs)
+EP_CASES = {"nodrop": (8.0, (2, 32), 0), "drops": (0.5, (2, 128), 1),
+            "m1_drops": (0.5, (8, 128), 2), "held_drops": (0.5, (1024, 1), 3)}
 EP_MESH = ((2, 4), ("data", "model"))
+FALLBACK_MESH = {"m1_drops": ((8, 1), ("data", "model")),
+                 "held_drops": ((2, 4), ("data", "model"))}
 #: sharded train step runs: name -> (arch, mesh shape, axis names, n_micro,
 #: steps, tokens (B, S), smoke overrides[, rule overrides])
 STEP_RUNS = {
@@ -58,6 +66,18 @@ STEP_RUNS = {
             (8, 32), {}),
     "moe": ("dbrx-132b", (2, 4), ("data", "model"), 1, 2, (4, 32),
             dict(n_experts=8, moe_topk=2, capacity_factor=8.0)),
+    # dropping pairs: at 'model' 1, JAX's dense dispatch of the global
+    # batch (capacity 128 for 2048 pairs), in one microbatch and in two
+    # (capacity 128 for 1024 pairs each: which rows share a microbatch
+    # decides the drops); on (2, 4) in two microbatches, the
+    # expert-parallel dispatch of each rank's rows of each (local
+    # capacity 8 for 64 pairs a rank)
+    "moe81_drops": ("dbrx-132b", (8, 1), ("data", "model"), 1, 2, (8, 128),
+                    dict(n_experts=8, moe_topk=2, capacity_factor=0.5)),
+    "moe81_micro": ("dbrx-132b", (8, 1), ("data", "model"), 2, 2, (16, 64),
+                    dict(n_experts=8, moe_topk=2, capacity_factor=0.5)),
+    "moe24_micro": ("dbrx-132b", (2, 4), ("data", "model"), 2, 2, (8, 64),
+                    dict(n_experts=8, moe_topk=2, capacity_factor=0.5)),
     # qkv biases (64,) split over 'model': ZeRO-1 goes on the stacked
     # layers dim (2 layers over |data| 2), each data rank one layer
     "layers": ("qwen2.5-14b", (2, 2, 2), ("pod", "data", "model"), 2, 3,
@@ -182,19 +202,28 @@ def step_rules(run):
     return DEFAULT_RULES.updated(**over)
 
 
+def ep_mesh(case):
+    """(shape, axis names) of a case's mesh."""
+    return FALLBACK_MESH.get(case, EP_MESH)
+
+
 def run_moe_ep(rank, out):
-    """moe_ffn_ep on each rank's row of the batch: outputs, aux and the
-    no-drop case's gradients; then MoETransformerLM under the rules."""
-    mesh = init_device_mesh("cpu", EP_MESH[0], mesh_dim_names=EP_MESH[1])
-    di = mesh.get_coordinate()[0]
+    """moe_ffn_ep on each data rank's rows of the batch: outputs, aux, the
+    collectives and the no-drop case's gradients; then MoETransformerLM
+    under the rules."""
     for case in EP_CASES:
+        mesh = init_device_mesh("cpu", ep_mesh(case)[0],
+                                mesh_dim_names=ep_mesh(case)[1])
+        di = mesh.get_coordinate()[0]
         x, p, w = port_experts(case, requires_grad=case == "nodrop")
-        xr = x[di:di + 1].clone().requires_grad_(case == "nodrop")
+        b = x.shape[0] // mesh.size(0)
+        xr = x[di * b:(di + 1) * b].clone().requires_grad_(case == "nodrop")
         col.LOG.reset()
         with use_rules(mesh, DEFAULT_RULES):
             y, aux = moe_ffn_ep(ep_cfg(case), p, xr)
-        out[f"ep_{case}_all_to_all"] = np.array(
-            col.LOG.n_calls().get("all-to-all", 0))
+        for kind in ("all-to-all", "all-gather"):
+            out[f"ep_{case}_{kind.replace('-', '_')}"] = np.array(
+                col.LOG.n_calls().get(kind, 0))
         out[f"ep_{case}_out"] = y.detach().numpy()
         out[f"ep_{case}_aux"] = aux.detach().numpy()
         if case == "nodrop":
@@ -202,6 +231,8 @@ def run_moe_ep(rank, out):
             out["ep_grad_x"] = xr.grad.numpy()
             for k in ("router", "wi", "wo"):
                 out[f"ep_grad_{k}"] = getattr(p, k).grad.numpy()
+    mesh = init_device_mesh("cpu", EP_MESH[0], mesh_dim_names=EP_MESH[1])
+    di = mesh.get_coordinate()[0]
     model = step_model("moe")
     toks = torch.from_numpy(step_tokens("moe"))[2 * di:2 * di + 2]
     with torch.no_grad():
