@@ -49,18 +49,24 @@ Phases, each failing the run with a non-zero exit:
                simt kernel also at the bf16 serving shapes) and gla_scan
                (bf16 cases on tc and on simt, f32 cases on simt) against
                their plain versions on the card, at the serving and
-               training shapes of every family and at edge cases
-  4. wiring  - qwen3-4b, rwkv6-7b, hymba-1.5b, dbrx-132b, internvl2-26b
-               and whisper-medium at full width, 1-2 layers, f32: prefill
+               training shapes of every family and at edge cases, every
+               head dim the kernels take (16-160: stablelm-12b's 160 at
+               its serving and training shapes, and a tp rank's through
+               the two-step decode)
+  4. wiring  - qwen3-4b, stablelm-12b (head dim 160, layernorm),
+               rwkv6-7b, hymba-1.5b, dbrx-132b, internvl2-26b and
+               whisper-medium at full width, 1-2 layers, f32: prefill
                + one decode step with the kernels vs with the plain
                versions (attn_impl="ref"/"chunked", gla_impl="chunked");
                and rwkv6-7b and hymba-1.5b in bf16, gla_impl="kernel" (the
                tc kernel) vs "chunked", beside two control readings: the
                plain model with a GLA scan broken on purpose
   5. serve   - the main paths: JoSS routing -> prefill -> greedy decode of
-               qwen3-4b, rwkv6-7b, hymba-1.5b, internvl2-26b and
-               whisper-medium at full width and depth, dbrx-132b (8 of 40
-               layers) and arctic-480b (2 of 35) at full width, bf16;
+               qwen3-4b, stablelm-12b, qwen2.5-14b, granite-3-2b,
+               rwkv6-7b, hymba-1.5b, internvl2-26b and whisper-medium at
+               full width and depth, dbrx-132b (8 of 40 layers) and
+               arctic-480b (2 of 35) at full width, bf16 (all ten
+               configs);
                counts each kernel's launches in each run, and the launches
                by variant (flash: prefill tc, decode split; GLA: tc)
   6. times   - each kernel, its plain version and (for attention) SDPA as
@@ -68,10 +74,10 @@ Phases, each failing the run with a non-zero exit:
                the card could take: eager calls timed by CUDA events (ms)
                and the host's cost a call, and in CUDA graphs (device_ms);
                the chosen kernel and the simt kernel (the first design) in
-               turns in the same run; at qwen3-4b's training shape (B 4 x
-               1024) also the forward plus the plain backward a training
-               step runs, and that backward alone, beside SDPA's forward
-               plus backward and its backward alone
+               turns in the same run; at qwen3-4b's and stablelm-12b's
+               training shape (B 4 x 1024) also the forward plus the plain
+               backward a training step runs, and that backward alone,
+               beside SDPA's forward plus backward and its backward alone
   7. grad    - gradients through the kernels' autograd Functions (kernel
                forward, the caller's plain backward) against autograd of
                the plain functions, at the serving and training shapes and
@@ -84,9 +90,10 @@ Phases, each failing the run with a non-zero exit:
                model (attn_impl="chunked", gla_impl="chunked") from the
                same weights, beside a control with attention's q/k/v
                gradients zeroed
-  9. train   - the training main paths in bf16: qwen3-4b and
-               whisper-medium at full width and depth, hymba-1.5b at 16
-               layers, rwkv6-7b at 8, dbrx-132b at 1 layer, arctic-480b at 1 layer with
+  9. train   - the training main paths in bf16: qwen3-4b, granite-3-2b
+               and whisper-medium at full width and depth, hymba-1.5b at
+               16 layers, rwkv6-7b at 8, stablelm-12b at 12, qwen2.5-14b
+               at 10, dbrx-132b at 1 layer, arctic-480b at 1 layer with
                32 of its 128 experts, internvl2-26b at 10 layers, each on
                batches of the JoSS policy-B pipeline (and whisper's
                frames, internvl2's patches) and then one batch repeated
@@ -122,7 +129,9 @@ Phases, each failing the run with a non-zero exit:
                136 a rank, the ranks' decode partials merged) against the
                unsharded model from the same weights (the bf16 steps
                also beside the n_micro control, the ranks' sums in f32 and
-               a planted fault the gate must reject); the two decode steps
+               a planted fault the gate must reject); then the other
+               families and stablelm-12b (a rank's 8 heads at head dim
+               160) at full width, 1-2 layers; the two decode steps
                against their plain versions; the launches by shape, the
                per-rank calls timed and held to their plain versions
   dryrun     - python -m repro_torch.launch.dryrun --all --both-meshes in a
@@ -227,14 +236,17 @@ GLA_TOL = {torch.float32: (7e-4, 2e-3), torch.bfloat16: (0.15, 5e-2)}
 # the serving runs (the main paths): arch -> (requests, prompt, generated).
 # hymba's prompt is twice its 1024-token window, so the window, the ring
 # wrap and the unsorted ring kpos are all on its path
-SERVE = {"qwen3-4b": (8, 512, 32), "rwkv6-7b": (8, 512, 32),
+SERVE = {"qwen3-4b": (8, 512, 32), "stablelm-12b": (8, 512, 32),
+         "qwen2.5-14b": (8, 512, 32), "granite-3-2b": (8, 512, 32),
+         "rwkv6-7b": (8, 512, 32),
          "hymba-1.5b": (8, 2048, 32), "dbrx-132b": (8, 512, 32),
          "arctic-480b": (8, 512, 32), "internvl2-26b": (8, 512, 32),
          "whisper-medium": (8, 224, 32)}
 # depth cut only where one card forces it, bf16: 8 of dbrx-132b's 40
 # layers (6.5 GB each) and 2 of arctic-480b's 35 (27.3 GB each) fill ~55
-# GB; internvl2-26b (~40 GB, its vision frontend a stub) and
-# whisper-medium run at full depth
+# GB; internvl2-26b (~40 GB, its vision frontend a stub), whisper-medium
+# and the dense configs run at full depth (stablelm-12b's weights ~24.3
+# GB, qwen2.5-14b's ~29.5, granite-3-2b's ~5)
 SERVE_LAYERS = {"dbrx-132b": 8, "arctic-480b": 2}
 # whisper-medium: 30 s of audio, 3000 log-mel frames (1500 encoder
 # positions), a prompt of half its 448-token text context; internvl2-26b's
@@ -1469,7 +1481,40 @@ def flash_cases():
          bf16, None),
         ("tc_d128", 1, 200, 300, 10, 2, 128, True, 100, ar(200, 251),
          ring_kpos(300, 450), bf16, None),
+        ("tc_d160", 1, 200, 300, 10, 2, 160, True, 100, ar(200, 251),
+         ring_kpos(300, 450), bf16, None),
     ]
+    # stablelm-12b, head dim 160 (H 32, G 8): its prefill (bf16 on tc,
+    # f32 on simt), its decode on the 544-slot cache, the decode's ragged
+    # and all-masked edges, and its training shape; qwen2.5-14b's (H 40,
+    # G 8: the split kernel's 5-row block at D 128) and granite-3-2b's (H
+    # 32, G 8, D 64) serving shapes
+    stab = get_config("stablelm-12b")
+    SH, SG, SD = stab.n_heads, stab.n_kv_heads, stab.hdim
+    for dt in (bf16, f32):
+        cases += [
+            ("stablelm_prefill", 8, P, P, SH, SG, SD, True, 0, ar(P), ar(P),
+             dt, None),
+            ("stablelm_decode", 8, 1, C, SH, SG, SD, True, 0, ar(1, last),
+             ring, dt, None),
+            ("stablelm_decode_first", 8, 1, C, SH, SG, SD, True, 0,
+             ar(1, P), half, dt, None),
+            ("split_ragged_d160", 3, 1, 200, SH, SG, SD, True, 0,
+             ar(1, 199), ar(200), dt, None),
+            ("split_all_masked_d160", 2, 1, 300, 10, 2, SD, True, 0,
+             ar(1, -5), ar(300), dt, None),
+        ]
+    _, SB, SS = TRAIN["stablelm-12b"][:3]
+    cases.append(("stablelm_train", SB, SS, SS, SH, SG, SD, True, 0, ar(SS),
+                  ar(SS), bf16, None))
+    for arch in ("qwen2.5-14b", "granite-3-2b"):
+        c = get_config(arch)
+        tag = arch.split("-")[0].replace(".", "")
+        cases += [
+            (f"{tag}_prefill", 8, P, P, c.n_heads, c.n_kv_heads, c.hdim, True,
+             0, ar(P), ar(P), bf16, None),
+            (f"{tag}_decode", 8, 1, C, c.n_heads, c.n_kv_heads, c.hdim, True,
+             0, ar(1, last), ring, bf16, None)]
     # the moe, vlm and encdec serving shapes: decode at H/G 6 (dbrx,
     # internvl2: the split kernel's 8-row block with 2 empty rows), 7
     # (arctic, 1 empty row) and 1 (whisper: the 4-row block with 3 empty
@@ -1558,7 +1603,8 @@ def flash_cases():
     # phase 6 times it
     cases += [c[:-1] + ("simt",) for c in cases
               if c[0] in ("prefill", "decode", "hymba_prefill",
-                          "hymba_decode") and c[11] == bf16]
+                          "hymba_decode", "stablelm_prefill",
+                          "stablelm_decode") and c[11] == bf16]
     return cases
 
 
@@ -1636,6 +1682,61 @@ def gla_inputs(B, T, H, K, V, use_u, init, logw_const, dt, gen):
     return r, k, v, logw, u, s0
 
 
+def rank_decode_checks(arch, gen):
+    """The two-step decode at one tp rank's heads of ``arch`` (its heads
+    and kv heads over TP_RANKS: stablelm-12b's H 8, G 2, D 160), as
+    TP_RANKS ranks of TP_SLOTS / TP_RANKS slots each: every rank's
+    flash_decode_partials at n_split 1, the chosen one and 3 against
+    flash_decode_partials_ref (f32 partials, TOL's f32 entry), then
+    flash_decode_merge of the kernel's partials against its plain version
+    (TOL of the type) and against flash_attention_ref over the whole
+    cache. Returns {tag: max abs error}."""
+    cfg = get_config(arch)
+    N, C = TP_SERVE[0], TP_SLOTS // TP_RANKS
+    H, G, D = (cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS,
+               cfg.hdim)
+    name = f"tp_rank_{arch.split('-')[0]}"
+    qpos = ar(1, TP_SLOTS - 1)
+    errs = {}
+
+    def held(tag, out, ref, dt, **kw):
+        atol, rtol = TOL[dt]
+        err, ok = within(out, ref, atol, rtol)
+        emit(phase="kernel", kernel="flash_attention", case=tag,
+             max_abs_err=err, atol=atol, rtol=rtol, **kw)
+        check(ok and bool(torch.isfinite(out).all()),
+              f"flash_attention disagrees with its plain version: {tag}")
+        errs[f"flash_attention:{tag}"] = err
+
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[-1]
+        q = rand((N, 1, H, D), dt, gen)
+        k, v = (rand((N, TP_SLOTS, G, D), dt, gen) for _ in range(2))
+        parts = []
+        for r in range(TP_RANKS):
+            kr, vr = (t[:, r * C:(r + 1) * C].contiguous() for t in (k, v))
+            kw = dict(qpos=qpos, kpos=ar(C, r * C))
+            ref = fa.flash_decode_partials_ref(q, kr, vr, **kw)
+            for n_split in (1, None, 3):
+                out = fa.flash_decode_partials(q, kr, vr, n_split=n_split,
+                                               **kw)
+                torch.cuda.synchronize()
+                held(f"{name}_partials/{dname}/r{r}_{n_split}", out, ref,
+                     torch.float32, step="partials", n_split=n_split,
+                     shape=[N, 1, C, H, G, D])
+            parts.append(out)
+        part = torch.stack(parts)
+        out = fa.flash_decode_merge(part, dt)
+        torch.cuda.synchronize()
+        held(f"{name}_merge/{dname}/merge", out,
+             fa.flash_decode_merge_ref(part, dt), dt, step="merge",
+             shape=list(part.shape))
+        held(f"{name}_merged/{dname}/whole_cache", out.reshape(q.shape),
+             fa.flash_attention_ref(q, k, v, qpos=qpos, kpos=ar(TP_SLOTS)),
+             dt, step="merge", shape=[N, 1, TP_SLOTS, H, G, D])
+    return errs
+
+
 def phase_kernel():
     gen = torch.Generator(device=DEV).manual_seed(1)
     errs = {}
@@ -1668,11 +1769,12 @@ def phase_kernel():
             if name.startswith("masked_rows"):  # qpos < 0: no valid key
                 check(bool((out[:, :10] == 0).all()), f"masked rows not "
                                                       f"zero: {tag}")
-            if name == "split_all_masked":
+            if name.startswith("split_all_masked"):
                 check(bool((out == 0).all()), f"masked row not zero: {tag}")
             errs[f"flash_attention:{tag}"] = err
             del out
         del q, k, v, ref
+    errs.update(rank_decode_checks("stablelm-12b", gen))
     for (name, B, T, H, K, V, use_u, init, logw_const,
          dt) in gla_cases():
         r, k, v, logw, u, s0 = gla_inputs(B, T, H, K, V, use_u, init,
@@ -1711,6 +1813,9 @@ WIRING = [
     # (arch, dtype, B, S, kernel build kwargs, plain build kwargs); 2
     # layers unless WIRING_CUT says otherwise
     ("qwen3-4b", "float32", 2, 128, dict(attn_impl="flash"),
+     dict(attn_impl="ref")),
+    # head dim 160 (simt at prefill, split at decode) and layernorm
+    ("stablelm-12b", "float32", 2, 128, dict(attn_impl="flash"),
      dict(attn_impl="ref")),
     ("rwkv6-7b", "float32", 2, 128, dict(gla_impl="kernel"),
      dict(gla_impl="chunked")),
@@ -2004,7 +2109,7 @@ def gla_work(B, T, H, K, V, use_u, itemsize, chunk=gs.CHUNK):
 #: the flash shapes of phase 6 that are training shapes: no serving
 #: launches (so the kernels line's totals leave them out), and their
 #: backward timed too
-FLASH_TRAIN = ("qwen3_train",)
+FLASH_TRAIN = ("qwen3_train", "stablelm_train")
 
 
 def flash_backward_times(qkv, sdpa_kw, kw, nbytes, flops):
@@ -2058,7 +2163,9 @@ def phase_times():
     # calls per serving run, buffers, iters)
     qcfg, hcfg = get_config("qwen3-4b"), get_config("hymba-1.5b")
     wcfg, vcfg = get_config("whisper-medium"), get_config("internvl2-26b")
-    _, TB, TS = TRAIN["qwen3-4b"][:3]
+    scfg = get_config("stablelm-12b")
+    _, TS = TRAIN["qwen3-4b"][1:3]
+    _, SS = TRAIN["stablelm-12b"][1:3]
     _, P, GEN = SERVE["qwen3-4b"]
     _, HP, HGEN = SERVE["hymba-1.5b"]
     VS = vcfg.vis_tokens + SERVE["internvl2-26b"][1]
@@ -2089,10 +2196,20 @@ def phase_times():
         # qwen3-4b's training shape (B 4 x 1024), no serving launches; its
         # backward timed below (FLASH_TRAIN)
         "qwen3_train": (qcfg, TS, TS, 0, True, ar(TS), ar(TS), 0, 2, 30),
+        # stablelm-12b at head dim 160: its serving prefill and decode, and
+        # its training shape (B 4 x 1024)
+        "stablelm_prefill": (scfg, P, P, 0, True, ar(P), ar(P),
+                             scfg.n_layers, 2, 50),
+        "stablelm_decode": (scfg, 1, C, 0, True, ar(1, last),
+                            torch.where(ar(C) <= last, ar(C), -1)
+                            .to(torch.int32), scfg.n_layers * (GEN - 1), 8,
+                            400),
+        "stablelm_train": (scfg, SS, SS, 0, True, ar(SS), ar(SS), 0, 2, 30),
     }
     for name, (cfg, Sq, Sk, window, causal, qpos, kpos, n_calls, nbuf,
                iters) in flash.items():
-        N = TB if name in FLASH_TRAIN else SERVE[cfg.name][0]
+        N = (TRAIN[cfg.name][1] if name in FLASH_TRAIN
+             else SERVE[cfg.name][0])
         H, G, D = cfg.n_heads, cfg.n_kv_heads, cfg.hdim
         bufs = [(rand((N, Sq, H, D), dt, gen), rand((N, Sk, G, D), dt, gen),
                  rand((N, Sk, G, D), dt, gen)) for _ in range(nbuf)]
@@ -2230,12 +2347,16 @@ def grad_cases():
     _, P, _ = SERVE["qwen3-4b"]
     _, HP, _ = SERVE["hymba-1.5b"]
     _, QB, QS = TRAIN["qwen3-4b"][:3]
+    _, SB, SS = TRAIN["stablelm-12b"][:3]
     _, RB, RT = TRAIN["rwkv6-7b"][:3]
     _, WB, WS = TRAIN["whisper-medium"][:3]
     WE = TRAIN_FRAMES["whisper-medium"] // 2
     flash = [("qwen3_prefill", 8, P, 32, 8, 128, 0, bf16),
              ("qwen3_train", QB, QS, 32, 8, 128, 0, bf16),
              ("qwen3_prefill", 2, P, 32, 8, 128, 0, f32),
+             # head dim 160: stablelm-12b's training shape, and f32
+             ("stablelm_train", SB, SS, 32, 8, 160, 0, bf16),
+             ("stablelm_prefill", 2, P, 32, 8, 160, 0, f32),
              # 2 x window: the banded backward
              ("hymba_prefill", 8, HP, 25, 5, 64, 1024, bf16),
              ("hymba_prefill", 2, HP, 25, 5, 64, 1024, f32),
@@ -2496,11 +2617,27 @@ TRAIN = {
     "dbrx-132b": (1, 4, 1024, 5, 3, None),
     "arctic-480b": (1, 4, 1024, 5, 3, None),
     "internvl2-26b": (10, 4, 1024, 5, 3, None),
+    # the dense configs at full width, 12 B a param: a stablelm-12b layer
+    # is 0.278 B params (3.3 GB) beside 1.03 B of untied embeddings (12.3
+    # GB), so 12 of its 40 layers (~52 GB of state); a qwen2.5-14b layer
+    # 0.275 B beside 1.56 B (18.7 GB), so 10 of 48 (~52 GB); granite-3-2b
+    # (2.53 B, ~30 GB) at full depth
+    "stablelm-12b": (12, 4, 1024, 5, 3, None),
+    "qwen2.5-14b": (10, 4, 1024, 5, 3, None),
+    "granite-3-2b": (None, 4, 1024, 5, 3, None),
 }
 # cuts beyond the depth
 TRAIN_CUT = {"arctic-480b": dict(n_experts=32)}
 TRAIN_FRAMES = {"whisper-medium": 3000}
 TRAIN_OPT = OptConfig(lr=1e-3, warmup_steps=0, total_steps=1000)
+#: AdamW's rate where TRAIN_OPT's is too large for the width: at 1e-3
+#: with no warm-up the 5120-wide dense models' loss on the repeated batch
+#: jumps (NVIDIA H100 80GB HBM3, scripts/train_lr_probe.py: qwen2.5-14b
+#: 12.67 -> 9.25 -> 12.70 through the kernel, 13.40 -> 9.47 -> 11.02
+#: through the plain attention, so the rate's and not the kernel's); at
+#: 1e-4 it falls at every step (qwen2.5-14b 10.37 -> 10.07 -> 8.03,
+#: stablelm-12b 10.19 -> 9.67 -> 7.99; PERF.md section 6)
+TRAIN_LR = {"stablelm-12b": 1e-4, "qwen2.5-14b": 1e-4}
 # the 4-layer qwen3-4b runs: n_micro 2 against 1 on one batch (loss and
 # grad norm: bf16 matmuls on half the rows, f32 accumulation against the
 # bf16 gradient), compression, and a checkpoint round trip
@@ -2574,7 +2711,8 @@ def run_train(arch):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=DEV)
-    tcfg = TrainConfig(opt=TRAIN_OPT)
+    tcfg = TrainConfig(opt=dataclasses.replace(
+        TRAIN_OPT, lr=TRAIN_LR.get(arch, TRAIN_OPT.lr)))
     state = init_train_state(model, torch.Generator(device=DEV)
                              .manual_seed(8), tcfg)
     step = make_train_step(model, tcfg)
@@ -2624,7 +2762,8 @@ def run_train(arch):
          n_experts=cfg.n_experts or None, d_model=cfg.d_model,
          dtype=cfg.dtype,
          params=n_params, batch=B, seq_len=S,
-         frames=TRAIN_FRAMES.get(arch), n_micro=1, steps=n_steps,
+         frames=TRAIN_FRAMES.get(arch), n_micro=1, lr=tcfg.opt.lr,
+         steps=n_steps,
          pipeline_steps=pipe_steps, repeated_steps=repeat_steps,
          s_per_step=secs, median_s_per_step=med,
          tokens_per_s=B * S / med, peak_mem_gb=peak, losses=losses,
@@ -3607,6 +3746,8 @@ TP_FAMILIES = {
                        (4, 128, 32, 160), 3000),
     "rwkv6-7b": (dict(n_layers=2), (2, 256), (4, 128, 32, None), None),
     "hymba-1.5b": (dict(n_layers=2), (2, 256), (4, 128, 32, 160), None),
+    # a rank's 8 heads and 2 kv heads at head dim 160
+    "stablelm-12b": (dict(n_layers=2), (2, 256), (4, 128, 32, 160), None),
 }
 #: the families' f32 logits against the unsharded model's, TF32 off: the
 #: largest error over the unsharded run's largest |logit|, so the bound
@@ -4292,6 +4433,8 @@ def main() -> None:
 # phase 3's cases at the bf16 serving shapes, whose errors the kernels line
 # reports
 SERVING_CASES = ("prefill", "decode", "hymba_prefill", "hymba_decode",
+                 "stablelm_prefill", "stablelm_decode", "qwen25_prefill",
+                 "qwen25_decode", "granite_prefill", "granite_decode",
                  "internvl2_prefill", "internvl2_decode", "dbrx_prefill",
                  "dbrx_decode", "arctic_prefill", "arctic_decode",
                  "whisper_encoder", "whisper_prefill",

@@ -10,9 +10,10 @@
 //
 // Layout: q (B, Sq, H, D), k/v (B, Sk, G, D) contiguous, G divides H, and q
 // head h reads kv head h / (H/G) by index (GQA copies nothing); qpos (Sq,)
-// and kpos (Sk,) int32; o (B, Sq, H, D). D in {16, 32, 64, 128}. A block
-// serves packed rows f = position * (H/G) + head of one kv head, so each K/V
-// tile is read once for all the q heads that share it. In prefill, whole
+// and kpos (Sk,) int32; o (B, Sq, H, D). D in {16, 32, 64, 128, 160}. A
+// block serves packed rows f = position * (H/G) + head of one kv head, so
+// each K/V tile is read once for all the q heads that share it. In prefill,
+// whole
 // key tiles that no row of the block can see (the causal upper triangle,
 // the window's far past, empty ring slots) are skipped before they are
 // loaded, decided from kpos alone since a ring's positions are not sorted.
@@ -29,7 +30,8 @@
 //   with ldmatrix and V with ldmatrix.trans from shared-memory rows padded
 //   by 16 bytes (conflict-free), K/V tiles of 64 keys staged by cp.async in
 //   two stages so the next tile loads while this one computes. 4 warps of
-//   16 rows at D = 128, 8 warps at D <= 64. p is rounded to bf16 for P.V
+//   2 x 16 rows at D = 128, 4 warps of 16 rows at D = 160, 8 warps of 16
+//   rows at D <= 64 (TcCfg). p is rounded to bf16 for P.V
 //   and l sums the unrounded f32 p, as the Pallas kernel does; exp runs as
 //   ex2 with log2(e) folded into the scale. Tiles that every row sees in
 //   full skip the per-element mask. The block's fixed costs were most of
@@ -334,6 +336,7 @@ cudaError_t dispatch_d(int D, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
+    case 160: return launch<T, 160>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -484,8 +487,12 @@ struct TcCfg {
   // a block, qwen3-4b's prefill spent as long on those reads as on the
   // arithmetic) and each K/V fragment feeds four mma; Q is then read from
   // shared memory per use, as its fragments would not fit the registers.
-  // One at D <= 64, with 8 warps, Q held in registers.
-  static constexpr int kMt = D >= 128 ? 2 : 1;
+  // One at D <= 64, with 8 warps, Q held in registers. One at D = 160,
+  // with 4 warps (64 rows), Q held in registers: two m-tiles would take
+  // 2 x 80 f32 registers for O alone, and 128 rows of Q beside two stages
+  // of K/V would fit one block an SM, not two; one takes O 80, S 32 and
+  // Q's fragments 40, and (64 + 4 x 64) rows x 336 B ~ 105 KB a block.
+  static constexpr int kMt = D == 128 ? 2 : 1;
   static constexpr int kWarps = D >= 128 ? 4 : 8;
   static constexpr int kRows = kWarps * kMt * 16;
   static constexpr int kStride = D + 8;  // bf16 row stride: +16 bytes
@@ -875,11 +882,56 @@ __device__ __forceinline__ void store_n(bf16* p, const float (&x)[N]) {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
+// The output dims a lane owns in the split kernel's p @ V and in the
+// merge: kMain contiguous dims at lane * kMain, moved as one vector, then
+// kTail more at 32 * kMain + lane + 32 * t. kTail is 0 except at D = 160,
+// where five dims at lane * 5 would be neither 8- nor 16-byte aligned, so
+// a lane takes four and one.
+template <int D>
+struct LaneDims {
+  static constexpr int kDpl = D >= 32 ? D / 32 : 1;
+  static constexpr int kMain = kDpl > 4 ? 4 : kDpl;
+  static constexpr int kTail = kDpl - kMain;
+  static_assert(D < 32 || D == 32 * kDpl, "D a multiple of 32");
+  // D = 16: lanes 0-15 hold a dim each, the others none
+  static __device__ __forceinline__ bool active(int lane) {
+    return D >= 32 || lane < D;
+  }
+  static __device__ __forceinline__ int dim(int lane, int e) {
+    return e < kMain ? lane * kMain + e : 32 * kMain + lane + 32 * (e - kMain);
+  }
+};
+
+template <int D, typename T>
+__device__ __forceinline__ void load_lane(const T* row, int lane,
+                                          float (&d)[LaneDims<D>::kDpl]) {
+  using L = LaneDims<D>;
+  float vec[L::kMain];
+  load_f32<L::kMain>(row + lane * L::kMain, vec);
+#pragma unroll
+  for (int e = 0; e < L::kMain; ++e) d[e] = vec[e];
+#pragma unroll
+  for (int t = 0; t < L::kTail; ++t)
+    d[L::kMain + t] = to_f32(row[L::dim(lane, L::kMain + t)]);
+}
+
+template <int D, typename T>
+__device__ __forceinline__ void store_lane(
+    T* row, int lane, const float (&x)[LaneDims<D>::kDpl]) {
+  using L = LaneDims<D>;
+  float vec[L::kMain];
+#pragma unroll
+  for (int e = 0; e < L::kMain; ++e) vec[e] = x[e];
+  store_n<L::kMain>(row + lane * L::kMain, vec);
+#pragma unroll
+  for (int t = 0; t < L::kTail; ++t)
+    store(row + L::dim(lane, L::kMain + t), x[L::kMain + t]);
+}
+
 template <typename T, int D, int R>  // R: q heads a block serves
 struct SplitCfg {
   static constexpr int kVec = 16 / sizeof(T);        // elements a 16-byte load
   static constexpr int kStride = D + kVec;           // row stride: +16 bytes
-  static constexpr int kDpl = D >= 32 ? D / 32 : 1;  // output dims a lane
   static constexpr size_t kStage = sizeof(T) * 2 * kTileK * kStride;  // K, V
   // one stage when a block has one tile (so more blocks fit an SM), else two
   static constexpr size_t smem(int stages) {
@@ -901,7 +953,8 @@ attn_decode_split(const T* __restrict__ q, const T* __restrict__ k,
                   const int* __restrict__ kpos, float* __restrict__ part,
                   int Sk, int H, int G, int causal, int window, float scale) {
   using C = SplitCfg<T, D, R>;
-  constexpr int KS = C::kStride, VN = C::kVec, DPL = C::kDpl;
+  using LD = LaneDims<D>;
+  constexpr int KS = C::kStride, VN = C::kVec, DPL = LD::kDpl;
   constexpr int CH = D / VN;  // 16-byte vectors a row
   // the merge grid may start now; it waits for this grid's writes itself
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
@@ -944,7 +997,7 @@ attn_decode_split(const T* __restrict__ q, const T* __restrict__ k,
 
   // lane: key kl of the tile for the scores, the half hf of its dims taken
   // as every other 16-byte vector (so the two halves' Q reads use other
-  // banks); dims lane * DPL.. for p @ V
+  // banks); dims LD::dim(lane, 0..DPL) for p @ V
   const int kl = warp * 16 + (lane & 15), hf = lane >> 4;
   float m[R], l[R], acc[R][DPL];
 #pragma unroll
@@ -1018,16 +1071,15 @@ attn_decode_split(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncwarp();
 
-    const int d0 = lane * DPL;
 #pragma unroll
     for (int j = 0; j < 16; j += 4) {
       float vv[4][DPL];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        if (D >= 32 || d0 < D)
-          load_f32<DPL>(tv + (warp * 16 + j + jj) * KS + d0, vv[jj]);
+        if (LD::active(lane))
+          load_lane<D>(tv + (warp * 16 + j + jj) * KS, lane, vv[jj]);
         else
-          vv[jj][0] = 0.f;
+          vv[jj][0] = 0.f;  // D = 16: DPL is 1
       }
 #pragma unroll
       for (int r = 0; r < R; ++r)
@@ -1062,8 +1114,8 @@ attn_decode_split(const T* __restrict__ q, const T* __restrict__ k,
         cm[warp * R + r] = m[r];
         cl[warp * R + r] = lt;
       }
-      if (D >= 32 || lane * DPL < D)
-        store_n(ca + (warp * R + r) * D + lane * DPL, acc[r]);
+      if (LD::active(lane))
+        store_lane<D>(ca + (warp * R + r) * D, lane, acc[r]);
     }
   __syncthreads();
   float* cw = ca + kSplitWarps * R * D;  // [kSplitWarps][R]: e^(m_w - M_r)
@@ -1112,7 +1164,8 @@ attn_decode_merge(const float* __restrict__ m, const float* __restrict__ l,
                   const float* __restrict__ a, long long rs, long long ss,
                   long long ars, long long ass, T* __restrict__ o,
                   float* __restrict__ out_part, int rows, int n_split) {
-  constexpr int DPL = D >= 32 ? D / 32 : 1;
+  using LD = LaneDims<D>;
+  constexpr int DPL = LD::kDpl;
   // launched early (programmatic dependent launch): wait until the split
   // grid has finished and its partials are visible; a plain launch has
   // nothing to wait for
@@ -1133,8 +1186,8 @@ attn_decode_merge(const float* __restrict__ m, const float* __restrict__ l,
     L = fmaf(pl[(size_t)s * ss], w, L);
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      if (D >= 32 || lane * DPL + e < D)
-        acc[e] = fmaf(pa[(size_t)s * ass + lane * DPL + e], w, acc[e]);
+      if (LD::active(lane))
+        acc[e] = fmaf(pa[(size_t)s * ass + LD::dim(lane, e)], w, acc[e]);
   }
   if (kPartial) {
     float* out = out_part + (size_t)row * (2 + D);
@@ -1144,14 +1197,14 @@ attn_decode_merge(const float* __restrict__ m, const float* __restrict__ l,
     }
 #pragma unroll
     for (int e = 0; e < DPL; ++e)
-      if (D >= 32 || lane * DPL + e < D) out[2 + lane * DPL + e] = acc[e];
+      if (LD::active(lane)) out[2 + LD::dim(lane, e)] = acc[e];
     return;
   }
   const float den = fmaxf(L, 1e-30f);
 #pragma unroll
   for (int e = 0; e < DPL; ++e) acc[e] /= den;
-  if (D >= 32 || lane * DPL < D)  // one store of DPL values a lane
-    store_n(o + (size_t)row * D + lane * DPL, acc);
+  if (LD::active(lane))  // one vector store a lane (and one more at D 160)
+    store_lane<D>(o + (size_t)row * D, lane, acc);
 }
 
 template <typename T, int D, int R>
@@ -1235,6 +1288,7 @@ cudaError_t dispatch_split(int D, const void* q, const void* k, const void* v,
     case 32: return launch_split<T, 32>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, out_part, s);
     case 64: return launch_split<T, 64>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, out_part, s);
     case 128: return launch_split<T, 128>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, out_part, s);
+    case 160: return launch_split<T, 160>(q, k, v, qpos, kpos, o, B, Sk, H, G, causal, window, scale, n_split, part, out_part, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1259,6 +1313,7 @@ cudaError_t dispatch_merge(int D, const float* part, void* o, int rows, int P,
     case 32: return launch_merge_packed<T, 32>(part, o, rows, P, s);
     case 64: return launch_merge_packed<T, 64>(part, o, rows, P, s);
     case 128: return launch_merge_packed<T, 128>(part, o, rows, P, s);
+    case 160: return launch_merge_packed<T, 160>(part, o, rows, P, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1272,6 +1327,7 @@ cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
     case 32: return launch_tc<32>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
     case 64: return launch_tc<64>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
     case 128: return launch_tc<128>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
+    case 160: return launch_tc<160>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

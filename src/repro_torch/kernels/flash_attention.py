@@ -43,7 +43,9 @@ from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.models.common import acc_dtype
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+#: the head dims the kernels are instantiated at (every config's, full
+#: width and a tensor-parallel rank's: 64, 128 and stablelm-12b's 160)
+HEAD_DIMS = (16, 32, 64, 128, 160)
 TILE_KEYS = 64               # keys a tile of the tc and split kernels
 # split-kernel blocks an SM holds at once (4 warps, one 64-key stage: ~39
 # KB of shared memory at D = 128 in bf16): decode_splits fits one wave
@@ -225,6 +227,13 @@ def decode_splits(B: int, G: int, Sk: int, n_sm: int) -> int:
     return -(-tiles // per)
 
 
+def check_head_dim(D: int) -> None:
+    """Raises for a head dim the kernels have no instantiation of; the dry
+    run's stand-ins (``kernels.meta``) apply the same rule."""
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+
+
 def _check(q, k, v, qpos, kpos) -> None:
     # get_device(): the decode step calls this on every layer, and building
     # torch.device objects would cost the host more than the kernel's time
@@ -242,8 +251,7 @@ def _check(q, k, v, qpos, kpos) -> None:
     Bk, Sk, G, Dk = k.shape
     if Bk != B or Dk != D or G < 1 or H % G:
         raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    check_head_dim(D)
     if min(B, Sq, Sk) < 1 or B > 65535 or G > 65535:
         raise ValueError(f"unsupported sizes B={B} Sq={Sq} Sk={Sk} G={G}")
     if qpos.shape != (Sq,) or kpos.shape != (Sk,) or \
@@ -419,11 +427,11 @@ def flash_decode_merge(part: torch.Tensor, dtype: torch.dtype
         raise ValueError(f"no flash_decode_merge for device {dev}")
     P, rows, width = part.shape
     D = width - 2
+    check_head_dim(D)
     if (part.dtype != torch.float32 or not part.is_contiguous()
-            or D not in HEAD_DIMS or dtype not in _DTYPE_CODE):
-        raise ValueError(f"need contiguous f32 partials (P, rows, 2 + D), D "
-                         f"in {HEAD_DIMS}, got {tuple(part.shape)} "
-                         f"{part.dtype} -> {dtype}")
+            or dtype not in _DTYPE_CODE):
+        raise ValueError(f"need contiguous f32 partials (P, rows, 2 + D), "
+                         f"got {tuple(part.shape)} {part.dtype} -> {dtype}")
     lib = build.load("flash_attention", _SIGNATURES)
     device = dev.index or 0
     stream = torch._C._cuda_getCurrentRawStream(device)

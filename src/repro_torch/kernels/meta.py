@@ -22,6 +22,11 @@ operations:
   final state out; the flops of the chunked form in chunks of
   ``gla_scan.CHUNK`` rows.
 
+The flash stand-ins apply the wrapper's head-dim rule
+(``flash_attention.check_head_dim``): a cell at a head dim the kernels
+have no instantiation of fails, as the card would, instead of counting a
+call that cannot launch.
+
 The backwards are the plain versions' autograd on the card too
 (``kernels.autograd``), so they are counted as they run.
 """
@@ -31,6 +36,8 @@ from typing import Optional
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
+
+from repro_torch.kernels.flash_attention import check_head_dim
 
 _LIB = torch.library.Library("repro_torch_meta", "DEF")
 _LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, Tensor? qpos, "
@@ -72,16 +79,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     qpos: Optional[torch.Tensor],
                     kpos: Optional[torch.Tensor], causal: bool,
                     window: int) -> torch.Tensor:
+    check_head_dim(q.shape[-1])
     return torch.ops.repro_torch_meta.flash_attention(q, k, v, qpos, kpos,
                                                       causal, window)
 
 
 def flash_decode_partials(q, k, v, qpos, kpos, causal, window):
+    check_head_dim(q.shape[-1])
     return torch.ops.repro_torch_meta.flash_decode_partials(
         q, k, v, qpos, kpos, causal, window)
 
 
 def flash_decode_merge(part, dtype):
+    check_head_dim(part.shape[-1] - 2)
     return torch.ops.repro_torch_meta.flash_decode_merge(part, dtype)
 
 
