@@ -2679,7 +2679,9 @@ def profile_step(step, state, batch):
     out.update({f"{k}_backward_device_ms": 0.0 for k in BACKWARD_SPANS})
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
-            if e.name in spans or e.name.startswith("Command Buffer"):
+            # the device-side mirrors of the program's ranges
+            # (repro_torch.spans) span kernels and are none themselves
+            if e.name.startswith(("repro_torch::", "Command Buffer")):
                 continue
             us = e.time_range.elapsed_us()
             out["step_device_ms"] += us / 1e3

@@ -23,9 +23,9 @@ device time of their scatter and gather backwards has a span of its own.
 ``kernels.ops`` routes through the kernels' Functions when grad mode is on
 and an input requires grad; the raw wrappers raise on such inputs
 (``refuse_grad``). The wrappers import this module, so it imports them
-where it calls them. Each backward runs inside a
-``torch.profiler.record_function`` range named in ``BACKWARD_SPANS``, so
-a profile can tell its device time apart.
+where it calls them. Each backward runs inside the profiler range named
+in ``BACKWARD_SPANS`` (``spans.span``: only while a profiler collects),
+so a profile can tell its device time apart.
 """
 from __future__ import annotations
 
@@ -33,11 +33,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models import common as cm
 
-BACKWARD_SPANS = {"flash_attention": "repro_torch::flash_attention_backward",
-                  "gla_scan": "repro_torch::gla_scan_backward",
-                  "moe_dispatch": "repro_torch::moe_dispatch_backward"}
+#: kernel -> the range name of its backward
+BACKWARD_SPANS = {k: f"{spans.PREFIX}{k}_backward"
+                  for k in ("flash_attention", "gla_scan", "moe_dispatch")}
 
 
 def _recompute_grads(fn, inputs: Sequence[Optional[torch.Tensor]],
@@ -90,8 +91,7 @@ class FlashAttentionFn(torch.autograd.Function):
                 kpos=kpos, self_attention=ctx.self_attention,
                 block_k=ctx.block_k),)
 
-        span = BACKWARD_SPANS["flash_attention"]
-        with torch.profiler.record_function(span):
+        with spans.span("flash_attention_backward"):
             dq, dk, dv = _recompute_grads(plain, (q, k, v),
                                           ctx.needs_input_grad[:3], (do,))
         return dq, dk, dv, None, None, None, None, None, None
@@ -116,7 +116,7 @@ class GlaScanFn(torch.autograd.Function):
         def plain(r, k, v, logw, u, s0):
             return _gla.gla_scan_ref(r, k, v, logw, u, initial_state=s0)
 
-        with torch.profiler.record_function(BACKWARD_SPANS["gla_scan"]):
+        with spans.span("gla_scan_backward"):
             return _recompute_grads(plain, ctx.saved_tensors,
                                     ctx.needs_input_grad, (dy, dstate))
 
@@ -135,7 +135,7 @@ class PlainSpanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        with torch.profiler.record_function(BACKWARD_SPANS[ctx.span]):
+        with spans.span(f"{ctx.span}_backward"):
             grads = _recompute_grads(lambda *a: (ctx.fn(*a),),
                                      ctx.saved_tensors,
                                      ctx.needs_input_grad[2:], (grad,))

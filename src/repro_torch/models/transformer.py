@@ -57,6 +57,7 @@ from repro_torch.convert import restack
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import common as cm
 from repro_torch.sharding.tp import group_of
+from repro_torch.spans import span
 
 ATTN_IMPLS = ("flash", "ref", "chunked")
 
@@ -796,34 +797,39 @@ class TransformerLM(nn.Module):
         """Vocab-parallel logits: each rank's columns, the padding tail
         masked by global column index."""
         cfg, tp = self.cfg, self.tp
-        x = apply_norm(cfg, self.final_norm, x)
-        heads = ([e.T for e in tp.pieces(self, "embed")]
-                 if cfg.tie_embeddings else tp.pieces(self, "lm_head"))
-        parts = []
-        for r, xr, head in zip(tp.ranks, tp.copy(x), heads):
-            logits = xr @ head
-            Vl = logits.shape[-1]
-            if cfg.padded_vocab != cfg.vocab:
-                pad = torch.arange(r * Vl, (r + 1) * Vl,
-                                   device=logits.device) >= cfg.vocab
-                logits = logits.masked_fill(pad, -1e9)
-            parts.append(logits)
+        with span("model.unembed"):
+            x = apply_norm(cfg, self.final_norm, x)
+            heads = ([e.T for e in tp.pieces(self, "embed")]
+                     if cfg.tie_embeddings else tp.pieces(self, "lm_head"))
+            parts = []
+            for r, xr, head in zip(tp.ranks, tp.copy(x), heads):
+                logits = xr @ head
+                Vl = logits.shape[-1]
+                if cfg.padded_vocab != cfg.vocab:
+                    pad = torch.arange(r * Vl, (r + 1) * Vl,
+                                       device=logits.device) >= cfg.vocab
+                    logits = logits.masked_fill(pad, -1e9)
+                parts.append(logits)
         return parts
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
+        """The logits of x: the final norm, the head matmul and the
+        padding mask, in the span ``model.unembed``; under vocab
+        parallelism, ``logit_parts`` gathered."""
         cfg = self.cfg
         if self.vocab_tp():
             return self.tp.gather(self.logit_parts(x), -1, True)
-        x = apply_norm(cfg, self.final_norm, x)
-        head = self.embed.T if cfg.tie_embeddings else self.lm_head
-        logits = x @ head
-        if cfg.padded_vocab != cfg.vocab:  # mask the padding tail
-            if logits.requires_grad:       # training: out of place
-                pad = torch.arange(logits.shape[-1],
-                                   device=logits.device) >= cfg.vocab
-                logits = logits.masked_fill(pad, -1e9)
-            else:
-                logits[..., cfg.vocab:] = -1e9
+        with span("model.unembed"):
+            x = apply_norm(cfg, self.final_norm, x)
+            head = self.embed.T if cfg.tie_embeddings else self.lm_head
+            logits = x @ head
+            if cfg.padded_vocab != cfg.vocab:  # mask the padding tail
+                if logits.requires_grad:       # training: out of place
+                    pad = torch.arange(logits.shape[-1],
+                                       device=logits.device) >= cfg.vocab
+                    logits = logits.masked_fill(pad, -1e9)
+                else:
+                    logits[..., cfg.vocab:] = -1e9
         return logits
 
     def backbone(self, x: torch.Tensor, positions: torch.Tensor, *,

@@ -25,6 +25,7 @@ from repro_torch.core.topology import VirtualCluster
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import build_model, prefix_len, side_inputs
 from repro_torch.serve.router import JossServeRouter, Request, RouteDecision
+from repro_torch.spans import span
 from repro_torch.train import make_prefill_step, make_serve_step
 
 
@@ -50,12 +51,13 @@ def route_requests(n_requests: int, prompt_len: int,
                    gen_len: int) -> JossServeRouter:
     """Route the batch across the pods of ``VirtualCluster([4, 4])``, with
     half of the sessions recurring (control plane)."""
-    router = JossServeRouter(VirtualCluster([4, 4]))
-    n_sessions = max(1, n_requests // 2)
-    for r in range(n_requests):
-        router.route(Request(f"req{r}", session=f"sess{r % n_sessions}",
-                             prompt_tokens=prompt_len,
-                             decode_tokens=gen_len))
+    with span("serve.route"):
+        router = JossServeRouter(VirtualCluster([4, 4]))
+        n_sessions = max(1, n_requests // 2)
+        for r in range(n_requests):
+            router.route(Request(f"req{r}", session=f"sess{r % n_sessions}",
+                                 prompt_tokens=prompt_len,
+                                 decode_tokens=gen_len))
     return router
 
 

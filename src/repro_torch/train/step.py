@@ -12,6 +12,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.spans import span
 from repro_torch.train.compress import compress_decompress
 from repro_torch.train.optimizer import OptConfig, adamw_init, adamw_update
 
@@ -44,8 +45,9 @@ def make_train_step(model, tcfg: TrainConfig = TrainConfig()) -> Callable:
         if tcfg.compress_grads:
             grads, opt_state["ef"] = compress_decompress(
                 grads, opt_state.get("ef"))
-        opt_state, opt_metrics = adamw_update(tcfg.opt, grads, opt_state,
-                                              params)
+        with span("train.optimizer"):
+            opt_state, opt_metrics = adamw_update(tcfg.opt, grads,
+                                                  opt_state, params)
         del grads
         return opt_state, dict(metrics, **opt_metrics, loss=loss)
 
@@ -67,7 +69,8 @@ def accumulate_grads(model, params: Dict[str, torch.Tensor],
             mb = rows(mb)
         for p in params.values():
             p.grad = None
-        loss, metrics = model.loss(mb, remat=tcfg.remat)
+        with span("train.forward"):
+            loss, metrics = model.loss(mb, remat=tcfg.remat)
         loss.backward()
         grads = {n: p.grad for n, p in params.items()}
         for p in params.values():
@@ -118,8 +121,9 @@ def make_serve_step(model) -> Callable:
 
     def serve_step(cache: Any, tokens: torch.Tensor, pos: int
                    ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
-        logits, cache = model.decode_step(cache, tokens, pos)
-        next_tokens = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+        with span("serve.decode_step"):
+            logits, cache = model.decode_step(cache, tokens, pos)
+            next_tokens = logits[:, -1:].argmax(dim=-1).to(torch.int32)
         return next_tokens, logits, cache
 
     return serve_step
@@ -132,8 +136,9 @@ def make_prefill_step(model, cache_len: Optional[int] = None) -> Callable:
 
     def prefill_step(batch: Dict[str, torch.Tensor]
                      ) -> Tuple[torch.Tensor, Any]:
-        logits, cache = model.prefill(batch, cache_len=cache_len)
-        next_tokens = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+        with span("serve.prefill"):
+            logits, cache = model.prefill(batch, cache_len=cache_len)
+            next_tokens = logits[:, -1:].argmax(dim=-1).to(torch.int32)
         return next_tokens, cache
 
     return prefill_step
