@@ -2109,18 +2109,20 @@ def gla_work(B, T, H, K, V, use_u, itemsize, chunk=gs.CHUNK):
 #: the flash shapes of phase 6 that are training shapes: no serving
 #: launches (so the kernels line's totals leave them out), and their
 #: backward timed too
-FLASH_TRAIN = ("qwen3_train", "stablelm_train")
+FLASH_TRAIN = ("qwen3_train", "stablelm_train", "granite_train")
 
 
 def flash_backward_times(qkv, sdpa_kw, kw, nbytes, flops):
     """At a training shape, eager calls timed by CUDA events, in turns,
     twice: the port's attention as a training step runs it (the kernel's
-    forward, then autograd of the plain attention, ``FlashAttentionFn``)
-    and that backward alone, beside SDPA's forward plus backward and its
-    backward alone; the bound of forward plus backward: the forward's
-    bytes and those of a backward that reads q, k, v, o and do and writes
-    dq, dk and dv, and 14 D flops a (q, k) pair (the forward's 4, and 10
-    for the recompute of q k^T and the four products of the backward)."""
+    forward with its log-sum-exp, then the backward kernels,
+    ``FlashAttentionFn``) and that backward alone, the backward the port
+    ran before (autograd of the plain attention, ``attention_plain``)
+    alone, beside SDPA's forward plus backward and its backward alone; the
+    bound of forward plus backward: the forward's bytes and those of a
+    backward that reads q, k, v, o and do and writes dq, dk and dv, and
+    14 D flops a (q, k) pair (the forward's 4, and 10 for the recompute of
+    q k^T and the four products of the backward)."""
     leaves = [t.detach().clone().requires_grad_(True) for t in qkv]
     do = torch.randn_like(qkv[0])
     lib = [t.detach().transpose(1, 2).contiguous().requires_grad_(True)
@@ -2135,10 +2137,13 @@ def flash_backward_times(qkv, sdpa_kw, kw, nbytes, flops):
                                               **sdpa_kw)
 
     o, lib_o = port(), sdpa()
+    plain_o = cm.attention_plain(*leaves, self_attention=True, **kw)
     fns = {
         "fwd_bwd": lambda: torch.autograd.grad(port(), leaves, do),
-        "plain_backward": lambda: torch.autograd.grad(
+        "backward": lambda: torch.autograd.grad(
             o, leaves, do, retain_graph=True),
+        "plain_backward": lambda: torch.autograd.grad(
+            plain_o, leaves, do, retain_graph=True),
         "library_fwd_bwd": lambda: torch.autograd.grad(sdpa(), lib, lib_do),
         "library_backward": lambda: torch.autograd.grad(
             lib_o, lib, lib_do, retain_graph=True)}
@@ -2163,9 +2168,10 @@ def phase_times():
     # calls per serving run, buffers, iters)
     qcfg, hcfg = get_config("qwen3-4b"), get_config("hymba-1.5b")
     wcfg, vcfg = get_config("whisper-medium"), get_config("internvl2-26b")
-    scfg = get_config("stablelm-12b")
+    scfg, gcfg = get_config("stablelm-12b"), get_config("granite-3-2b")
     _, TS = TRAIN["qwen3-4b"][1:3]
     _, SS = TRAIN["stablelm-12b"][1:3]
+    _, GS = TRAIN["granite-3-2b"][1:3]
     _, P, GEN = SERVE["qwen3-4b"]
     _, HP, HGEN = SERVE["hymba-1.5b"]
     VS = vcfg.vis_tokens + SERVE["internvl2-26b"][1]
@@ -2205,6 +2211,9 @@ def phase_times():
                             .to(torch.int32), scfg.n_layers * (GEN - 1), 8,
                             400),
         "stablelm_train": (scfg, SS, SS, 0, True, ar(SS), ar(SS), 0, 2, 30),
+        # granite-3-2b's training shape (B 4 x 1024, H 32, G 8, D 64), the
+        # benchmark's training cell
+        "granite_train": (gcfg, GS, GS, 0, True, ar(GS), ar(GS), 0, 2, 30),
     }
     for name, (cfg, Sq, Sk, window, causal, qpos, kpos, n_calls, nbuf,
                iters) in flash.items():
@@ -2325,13 +2334,16 @@ def phase_times():
 
 
 # ---------------------------------------------------------------- phase 7 --
-# gradients through the kernels' autograd Functions (kernel forward, the
-# plain version's backward) against autograd of the plain functions, as
-# ||g_fn - g_plain|| / ||g_plain|| for each input. The upstream gradient
-# is out - target, so each side's own forward output enters its gradient:
-# f32 differs only by summation order; bf16 by the kernel's f32
-# accumulation against the plain versions' bf16 (attention) and the tc
-# kernel's bf16 operands (GLA), as in the bf16 wiring lines
+# gradients through the kernels' autograd Functions against autograd of the
+# plain functions, as ||g_fn - g_plain|| / ||g_plain|| for each input: the
+# f32 rows through the kernel forward and the plain version's backward, the
+# bf16 flash rows through the tc forward and the backward kernels
+# (attn_bwd_dq, attn_bwd_dkv), the bf16 GLA rows through the tc forward and
+# the plain backward. The upstream gradient is out - target, so each side's
+# own forward output enters its gradient: f32 differs only by summation
+# order; bf16 by the kernels' f32 accumulation and bf16 P and dS against
+# the plain versions' bf16 accumulation (attention) and the tc kernel's
+# bf16 operands (GLA), as in the bf16 wiring lines
 GRAD_RTOL = {torch.float32: 1e-3, torch.bfloat16: 5e-2}
 
 
@@ -2348,12 +2360,15 @@ def grad_cases():
     _, HP, _ = SERVE["hymba-1.5b"]
     _, QB, QS = TRAIN["qwen3-4b"][:3]
     _, SB, SS = TRAIN["stablelm-12b"][:3]
+    _, GB, GS = TRAIN["granite-3-2b"][:3]
     _, RB, RT = TRAIN["rwkv6-7b"][:3]
     _, WB, WS = TRAIN["whisper-medium"][:3]
     WE = TRAIN_FRAMES["whisper-medium"] // 2
     flash = [("qwen3_prefill", 8, P, 32, 8, 128, 0, bf16),
              ("qwen3_train", QB, QS, 32, 8, 128, 0, bf16),
              ("qwen3_prefill", 2, P, 32, 8, 128, 0, f32),
+             # the benchmark's training cell: granite-3-2b (D 64)
+             ("granite_train", GB, GS, 32, 8, 64, 0, bf16),
              # head dim 160: stablelm-12b's training shape, and f32
              ("stablelm_train", SB, SS, 32, 8, 160, 0, bf16),
              ("stablelm_prefill", 2, P, 32, 8, 160, 0, f32),
@@ -2646,6 +2661,8 @@ CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
 
 
 def reset_counts():
+    fa.flash_attention_backward.launches = 0
+    fa.flash_attention_backward.plain_calls = 0
     for fn in (fa.flash_attention, gs.gla_scan):
         fn.launches = 0
         for name in fn.launches_by_variant:
@@ -2666,7 +2683,7 @@ def timed_step(step, state, batch):
 def profile_step(step, state, batch):
     """One train step under torch.profiler: device ms of every kernel, of
     the kernels' forward launches and of the Functions' backward spans
-    (the plain recompute)."""
+    (the attention backward kernels, the plain recompute of the others)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -2739,11 +2756,15 @@ def run_train(arch):
     variants = {"flash_attention": dict(fa.flash_attention
                                         .launches_by_variant),
                 "gla_scan": dict(gs.gla_scan.launches_by_variant)}
+    backward = {"launches": fa.flash_attention_backward.launches,
+                "plain_calls": fa.flash_attention_backward.plain_calls}
     peak = torch.cuda.max_memory_allocated() / 1e9
     # each attention call's kernel runs twice a step: the forward and the
-    # remat recompute in the backward (the backward itself is plain)
+    # remat recompute in the backward; its backward once, on the kernels
     want = {"flash_attention": 2 * attn_calls(cfg)[0] * n_steps,
             "gla_scan": 2 * cfg.n_layers * n_steps if gla else 0}
+    want_backward = {"launches": attn_calls(cfg)[0] * n_steps,
+                     "plain_calls": 0}
     med = statistics.median(secs[1:])
     rep = pipe.locality_report()
     n_params = sum(p.numel() for p in model.parameters())
@@ -2770,7 +2791,8 @@ def run_train(arch):
          s_per_step=secs, median_s_per_step=med,
          tokens_per_s=B * S / med, peak_mem_gb=peak, losses=losses,
          grad_norms=gnorms, launches=got, expected_launches=want,
-         launches_by_variant=variants,
+         launches_by_variant=variants, flash_backward=backward,
+         expected_flash_backward=want_backward,
          locality={"host": rep.host_rate, "pod": rep.pod_rate,
                    "off_pod": rep.off_pod_rate},
          profile=prof)
@@ -2781,6 +2803,8 @@ def run_train(arch):
                                           f"repeated batch did not fall: "
                                           f"{rep_losses}")
     check(got == want, f"{arch}: train launches {got}, expected {want}")
+    check(backward == want_backward, f"{arch}: flash backward {backward}, "
+                                     f"expected {want_backward}")
     check(variants["flash_attention"]["tc"] == want["flash_attention"]
           and variants["gla_scan"]["tc"] == want["gla_scan"],
           f"{arch}: bf16 training should launch only tc kernels: "
@@ -4316,7 +4340,7 @@ PER_CALL_KEYS = ("shape", "variant", "n_split", "ms", "host_us",
                  "device_ms", "simt_ms", "simt_host_us", "simt_device_ms",
                  "plain_ms", "library_ms", "library_host_us",
                  "library_device_ms", "bound_ms", "bound_by",
-                 "launches_per_serving_run", "fwd_bwd_ms",
+                 "launches_per_serving_run", "fwd_bwd_ms", "backward_ms",
                  "plain_backward_ms", "library_fwd_bwd_ms",
                  "library_backward_ms", "fwd_bwd_bound_ms")
 

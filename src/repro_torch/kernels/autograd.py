@@ -1,12 +1,19 @@
 """Gradient-carrying calls of the port's kernels.
 
-The kernels are forward-only, as the Pallas kernels are, and they write
-their outputs through raw pointers, so an output of theirs has no
-``grad_fn``. Each ``torch.autograd.Function`` here runs the kernel in its
-forward and, in its backward, recomputes the same function through
-autograd of the plain version the JAX package trains through:
+The kernels write their outputs through raw pointers, so an output of
+theirs has no ``grad_fn``. Each ``torch.autograd.Function`` here runs the
+kernel in its forward. In its backward, flash attention runs its backward
+kernels where the forward ran the tc kernel; elsewhere, and for the other
+kernels (forward-only, as the Pallas kernels are), the backward recomputes
+the same function through autograd of the plain version the JAX package
+trains through:
 
-- ``FlashAttentionFn``: ``models.common.attention_plain``, the plain
+- ``FlashAttentionFn``: on CUDA bf16 with Sq > 1
+  (``flash_attention.backward_on_kernel``), the forward saves its output
+  and each row's log-sum-exp and the backward runs ``attn_bwd_dq`` and
+  ``attn_bwd_dkv`` (``flash_attention.flash_attention_backward``), the
+  exact gradient of what the kernel computes. Elsewhere (the CPU, f32, f64,
+  the dry run's meta tensors) ``models.common.attention_plain``, the plain
   function of the caller: the dispatch of JAX
   ``transformer.causal_attention`` (banded for a sliding window that tiles
   the sequence at least twice, else chunked with ``block_k = min(1024,
@@ -63,27 +70,34 @@ def _recompute_grads(fn, inputs: Sequence[Optional[torch.Tensor]],
 class FlashAttentionFn(torch.autograd.Function):
     """q (B,Sq,H,D), k/v (B,Sk,G,D), contiguous; int32 positions or None.
     ``self_attention`` says that qpos and kpos are the same positions, the
-    condition of the banded backward; ``block_k`` (or None) is the
-    caller's, passed on to ``attention_plain``."""
+    condition of the banded plain backward; ``block_k`` (or None) is the
+    caller's, passed on to ``attention_plain``. Each backward counts in
+    ``flash_attention_backward.launches`` (the kernels) or its
+    ``plain_calls``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int,
                 qpos: Optional[torch.Tensor], kpos: Optional[torch.Tensor],
                 self_attention: bool, block_k: Optional[int] = None):
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(q, k, v, qpos, kpos)
         ctx.causal, ctx.window, ctx.self_attention = (causal, window,
                                                       self_attention)
         ctx.block_k = block_k
         from repro_torch.kernels import flash_attention as _fa
-        return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                                   qpos=qpos, kpos=kpos)
+        kw = dict(causal=causal, window=window, qpos=qpos, kpos=kpos)
+        if _fa.backward_on_kernel(q):
+            o, lse = _fa.flash_attention_fwd_lse(q, k, v, **kw)
+            ctx.save_for_backward(q, k, v, qpos, kpos, o, lse)
+            return o
+        ctx.save_for_backward(q, k, v, qpos, kpos)
+        return _fa.flash_attention(q, k, v, **kw)
 
     @staticmethod
     def backward(ctx, do):
         if do is None:
             return (None,) * 9
-        q, k, v, qpos, kpos = ctx.saved_tensors
+        from repro_torch.kernels import flash_attention as _fa
+        q, k, v, qpos, kpos, *kernel = ctx.saved_tensors
 
         def plain(q, k, v):
             return (cm.attention_plain(
@@ -92,8 +106,18 @@ class FlashAttentionFn(torch.autograd.Function):
                 block_k=ctx.block_k),)
 
         with spans.span("flash_attention_backward"):
-            dq, dk, dv = _recompute_grads(plain, (q, k, v),
-                                          ctx.needs_input_grad[:3], (do,))
+            if kernel:
+                o, lse = kernel
+                grads = _fa.flash_attention_backward(
+                    q, k, v, o, lse, do.contiguous(), causal=ctx.causal,
+                    window=ctx.window, qpos=qpos, kpos=kpos)
+                dq, dk, dv = (g if need else None for g, need in
+                              zip(grads, ctx.needs_input_grad[:3]))
+            else:
+                _fa.flash_attention_backward.plain_calls += 1
+                dq, dk, dv = _recompute_grads(plain, (q, k, v),
+                                              ctx.needs_input_grad[:3],
+                                              (do,))
         return dq, dk, dv, None, None, None, None, None, None
 
 

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), f32 and bf16.
+// Flash attention for Hopper (sm_90a): the forward in f32 and bf16, and
+// the bf16 backward of the prefill kernel (attn_bwd_*, at the end).
 //
 // Replaces repro/kernels/flash_attention.py::_attn_kernel (the Pallas TPU
 // kernel) together with the GQA broadcast of repro/kernels/ops.py.
@@ -468,6 +469,8 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+constexpr float kLog2e = 1.4426950408889634f;  // scale -> log2 domain
+
 // 2^x in one MUFU instruction (relative error ~2^-22; 0 for x = -1e30)
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -501,12 +504,17 @@ struct TcCfg {
       + sizeof(int) * (2 * kTileK + 2 * kWarps + 1);  // kpos x 2, bounds, n
 };
 
-template <int D>
+// kLse: also write each row's log-sum-exp in the log2 domain of the
+// scaled scores, lse[(b * G + g) * Sq * H/G + f] = m + log2(l) in the
+// packed row order f (+inf for a row with no valid key), which the
+// backward kernels read (training). kLse = false is the inference path.
+template <int D, bool kLse>
 __global__ void __launch_bounds__(TcCfg<D>::kWarps * 32, 2)
 attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
             const bf16* __restrict__ v, const int* __restrict__ qpos,
-            const int* __restrict__ kpos, bf16* __restrict__ o, int Sq,
-            int Sk, int H, int G, int causal, int window, float scale_log2) {
+            const int* __restrict__ kpos, bf16* __restrict__ o,
+            float* __restrict__ lse, int Sq, int Sk, int H, int G, int causal,
+            int window, float scale_log2) {
   using C = TcCfg<D>;
   constexpr int NW = C::kWarps, MT = C::kMt, BM = C::kRows, RS = C::kStride;
   constexpr int NT = NW * 32, CH = D / 8;  // threads; 16-byte chunks a row
@@ -770,6 +778,12 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       float lt = l[mt][h] + __shfl_xor_sync(kFull, l[mt][h], 1);
       lt += __shfl_xor_sync(kFull, lt, 2);
       const float den = fmaxf(lt, 1e-30f);
+      if constexpr (kLse) {
+        const int f = row0 + wrow + 16 * mt + fr + 8 * h;
+        if (fc == 0 && f < n_rows)
+          lse[(size_t)(b * G + g) * n_rows + f] =
+              lt > 0.f ? m[mt][h] + log2f(lt) : __int_as_float(0x7f800000);
+      }
       bf16* dst = sQ + (wrow + 16 * mt + fr + 8 * h) * RS + fc;
 #pragma unroll
       for (int j = 0; j < ND; ++j)
@@ -787,24 +801,38 @@ attn_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-cudaError_t launch_tc(const void* q, const void* k, const void* v,
-                      const int* qpos, const int* kpos, void* o, int B,
-                      int Sq, int Sk, int H, int G, int causal, int window,
-                      float scale, cudaStream_t stream) {
+template <int D, bool kLse>
+cudaError_t launch_tc_as(const void* q, const void* k, const void* v,
+                         const int* qpos, const int* kpos, void* o,
+                         float* lse, int B, int Sq, int Sk, int H, int G,
+                         int causal, int window, float scale,
+                         cudaStream_t stream) {
   using C = TcCfg<D>;
   static size_t granted = 48 << 10;  // per instantiation and process
   const int n_tiles = (Sk + kTileK - 1) / kTileK;
   const size_t smem = C::kSmem + sizeof(int) * 2 * n_tiles;
-  const cudaError_t err = allow_smem(attn_fwd_tc<D>, smem, &granted);
+  const cudaError_t err = allow_smem(attn_fwd_tc<D, kLse>, smem, &granted);
   if (err != cudaSuccess) return err;
   const long long rows = (long long)Sq * (H / G);
   const dim3 grid((unsigned)((rows + C::kRows - 1) / C::kRows), G, B);
-  attn_fwd_tc<D><<<grid, C::kWarps * 32, smem, stream>>>(
+  attn_fwd_tc<D, kLse><<<grid, C::kWarps * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), qpos, kpos, static_cast<bf16*>(o), Sq, Sk,
-      H, G, causal, window, scale * 1.4426950408889634f);
+      static_cast<const bf16*>(v), qpos, kpos, static_cast<bf16*>(o), lse,
+      Sq, Sk, H, G, causal, window, scale * kLog2e);
   return cudaGetLastError();
+}
+
+// lse null: the inference instantiation (kLse = false)
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v,
+                      const int* qpos, const int* kpos, void* o, float* lse,
+                      int B, int Sq, int Sk, int H, int G, int causal,
+                      int window, float scale, cudaStream_t s) {
+  if (lse == nullptr)
+    return launch_tc_as<D, false>(q, k, v, qpos, kpos, o, nullptr, B, Sq, Sk,
+                                  H, G, causal, window, scale, s);
+  return launch_tc_as<D, true>(q, k, v, qpos, kpos, o, lse, B, Sq, Sk, H, G,
+                               causal, window, scale, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1319,15 +1347,683 @@ cudaError_t dispatch_merge(int D, const float* part, void* o, int rows, int P,
 }
 
 cudaError_t dispatch_tc(int D, const void* q, const void* k, const void* v,
-                        const int* qpos, const int* kpos, void* o, int B,
-                        int Sq, int Sk, int H, int G, int causal, int window,
-                        float scale, cudaStream_t s) {
+                        const int* qpos, const int* kpos, void* o, float* lse,
+                        int B, int Sq, int Sk, int H, int G, int causal,
+                        int window, float scale, cudaStream_t s) {
   switch (D) {
-    case 16: return launch_tc<16>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
-    case 32: return launch_tc<32>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
-    case 64: return launch_tc<64>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
-    case 128: return launch_tc<128>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
-    case 160: return launch_tc<160>(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, causal, window, scale, s);
+    case 16: return launch_tc<16>(q, k, v, qpos, kpos, o, lse, B, Sq, Sk, H, G, causal, window, scale, s);
+    case 32: return launch_tc<32>(q, k, v, qpos, kpos, o, lse, B, Sq, Sk, H, G, causal, window, scale, s);
+    case 64: return launch_tc<64>(q, k, v, qpos, kpos, o, lse, B, Sq, Sk, H, G, causal, window, scale, s);
+    case 128: return launch_tc<128>(q, k, v, qpos, kpos, o, lse, B, Sq, Sk, H, G, causal, window, scale, s);
+    case 160: return launch_tc<160>(q, k, v, qpos, kpos, o, lse, B, Sq, Sk, H, G, causal, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// attn_bwd_dq + attn_bwd_dkv: the backward of attn_fwd_tc (bf16), FA2-style.
+//
+// The JAX package trains through autograd of its plain attention (no Pallas
+// backward); so did the port, through autograd of attention_plain, which
+// writes (B, G, H/G, Sq, Sk) f32 scores and probabilities to device memory
+// and took ~100x the least time. At the training shapes the work is large
+// beside the bytes (granite-3-2b, B 4 x 1024, H 32, D 64: 4.3e10 operations
+// of the five causal products over 85 MB), so operations bound it; both
+// kernels run on the tensor cores as attn_fwd_tc does (mma.sync bf16 with
+// f32 accumulators, ldmatrix, two cp.async stages) and recompute
+// P = 2^(s * scale * log2 e - lse) from the forward's log-sum-exp (kLse), so
+// no S x S matrix leaves the chip. P and dS enter their products in bf16, as
+// the forward's P does. Masks as the forward: whole tiles the mask hides are
+// skipped before they are loaded, tiles every row sees in full skip the
+// per-element mask, a row with no valid key gets zero gradient.
+//
+// * attn_bwd_dq: one block a tile of packed rows of one kv head, 16 rows a
+//   warp (attn_fwd_tc's layout at one m-tile a warp). First each row's
+//   D = rowsum(dO o O) in f32, written for attn_bwd_dkv; then over the key
+//   tiles the rows see (tile_list): S = Q K^T, dP = dO V^T, P,
+//   dS = P (dP - D), dQ += dS K. dQ leaves once, in bf16.
+// * attn_bwd_dkv: one block a 64-key tile of one kv head (grid key tiles x G
+//   x B), each warp 16 of its keys. It walks the packed rows of the group
+//   (every q head that reads the kv head, at every position) in steps of
+//   kRows, those the mask lets see the tile (row_list): S^T = K Q^T,
+//   dP^T = V dO^T, P^T, dS^T, dV += P^T dO, dK += dS^T Q. dK and dV stay in
+//   f32 registers over the whole group, so the group's heads sum without
+//   atomics; they leave once, in bf16.
+//
+// dQ takes a pass of its own rather than f32 atomics from attn_bwd_dkv: it
+// recomputes S and dP (seven products where five would do), and in return
+// needs no f32 scratch the size of q and no conversion pass after it, and
+// gives the same bits on every run.
+
+template <int D>
+struct BwdCfg {
+  static constexpr int kWarps = 4;       // both kernels
+  static constexpr int kStride = D + 8;  // bf16 row stride: +16 bytes
+  // attn_bwd_dq: 16 rows a warp; the Q and dO fragments held in registers
+  // up to D 64, else read from shared memory per use
+  static constexpr int kQRows = kWarps * 16;
+  static constexpr bool kQRegs = D <= 64;
+  // attn_bwd_dkv: packed rows a step (16 or a multiple of 32), as few as
+  // keep dK and dV (D / 2 f32 registers each) beside S^T and dP^T (kRows / 2
+  // each) without spills; the K and V fragments in registers up to D 64
+  static constexpr int kRows = D <= 64 ? 64 : D <= 128 ? 32 : 16;
+  static constexpr bool kKvRegs = D <= 64;
+  static constexpr size_t kDqSmem =
+      sizeof(bf16) * (2 * kQRows + 4 * kTileK) * kStride  // Q, dO, 2 x (K, V)
+      + sizeof(float) * 2 * kQRows                         // lse, D
+      + sizeof(int) * (2 * kTileK + 2 * kWarps + 1);       // kpos x 2, bounds
+  static constexpr size_t kDkvSmem =
+      sizeof(bf16) * (2 * kTileK + 4 * kRows) * kStride  // K, V, 2 x (Q, dO)
+      + sizeof(float) * 4 * kRows                         // 2 x (lse, D)
+      + sizeof(int) * (2 * kRows + kTileK + 6 + 1);       // qpos x 2, kpos
+  static_assert(kWarps * 16 == kTileK, "attn_bwd_dkv: 16 keys a warp");
+};
+
+// Fills list[0..n) with the tiles of `rows` packed rows (f = position * hpg
+// + head in group; n_rows of them) that see some key of a key tile whose
+// valid positions lie in [kmin, kmax] (full: every key of the tile valid),
+// each entry (tile << 1) | partial, where partial says some row of the tile
+// may not see some key (or lies past n_rows), so the per-element mask must
+// run. rows is 16 or a multiple of 32; list needs row_list_words ints: first
+// one flag word per min(rows, 32) rows, written by the warp that reads
+// them, then the entries. Returns n in every thread, after a barrier.
+__host__ __device__ constexpr int row_list_words(int n_rows, int rows) {
+  return (n_rows + 31) / 32 * (rows < 32 ? 2 : 1);
+}
+
+__device__ __forceinline__ int row_list(const int* __restrict__ qpos,
+                                        int n_rows, int hpg, int rows,
+                                        int kmin, int kmax, bool full,
+                                        int causal, int window, int* list,
+                                        int* count) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5, per = rows < 32 ? 1 : rows / 32;
+  const int n_chunks = (n_rows + 31) / 32;
+  const int words = row_list_words(n_rows, rows);
+  const int n_tiles = (words + per - 1) / per;
+  auto flags = [](unsigned any, bool all) {
+    return (any ? 1 : 0) | (all ? 0 : 2);
+  };
+  for (int c = warp; c < n_chunks; c += nw) {
+    const int f = 32 * c + lane;
+    const bool ok = f < n_rows;
+    const int qp = ok ? qpos[f / hpg] : 0;
+    const bool seen = ok && kmin <= kmax && (!causal || qp >= kmin) &&
+                      (window <= 0 || kmax > qp - window);
+    const bool by_all = ok && full && (!causal || qp >= kmax) &&
+                        (window <= 0 || kmin > qp - window);
+    const unsigned any = __ballot_sync(kFull, seen);
+    const unsigned all = __ballot_sync(kFull, by_all);
+    if (lane == 0) {
+      if (rows < 32) {  // a word a 16 rows
+        list[2 * c] = flags(any & 0xffffu, (all & 0xffffu) == 0xffffu);
+        list[2 * c + 1] = flags(any >> 16, (all >> 16) == 0xffffu);
+      } else {
+        list[c] = flags(any, all == kFull);
+      }
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {  // compact in place: entry t lands at n <= t
+    int n = 0;
+    for (int t0 = 0; t0 < n_tiles; t0 += 32) {
+      const int t = t0 + lane;
+      int f = 0;
+      for (int u = 0; u < per; ++u) {
+        const int w = t * per + u;
+        if (t < n_tiles && w < words) f |= list[w];
+      }
+      const unsigned use = __ballot_sync(kFull, f & 1);
+      __syncwarp();  // every lane has read its flags before any write
+      if (f & 1)
+        list[n + __popc(use & ((1u << lane) - 1))] = (t << 1) | (f >> 1);
+      n += __popc(use);
+    }
+    if (lane == 0) *count = n;
+  }
+  __syncthreads();
+  return *count;
+}
+
+template <int D>
+__global__ void __launch_bounds__(BwdCfg<D>::kWarps * 32, 2)
+attn_bwd_dq(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, const bf16* __restrict__ o,
+            const bf16* __restrict__ dout, const float* __restrict__ lse,
+            const int* __restrict__ qpos, const int* __restrict__ kpos,
+            bf16* __restrict__ dq, float* __restrict__ delta, int Sq, int Sk,
+            int H, int G, int causal, int window, float scale_log2,
+            float scale) {
+  using C = BwdCfg<D>;
+  constexpr int NW = C::kWarps, BM = C::kQRows, RS = C::kStride;
+  constexpr int NT = NW * 32, CH = D / 8;  // threads; 16-byte chunks a row
+  constexpr int NJ = kTileK / 8, ND = D / 8;
+  constexpr bool kRegs = C::kQRegs;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sdO = sQ + BM * RS;
+  bf16* sK = sdO + BM * RS;              // [2][kTileK][RS]
+  bf16* sV = sK + 2 * kTileK * RS;       // [2][kTileK][RS]
+  float* sLse = reinterpret_cast<float*>(sV + 2 * kTileK * RS);  // [BM]
+  float* sDel = sLse + BM;               // [BM]
+  int* sKp = reinterpret_cast<int*>(sDel + BM);  // [2][kTileK]
+  int* sBound = sKp + 2 * kTileK;        // [2][NW]: min, max
+  int* sCount = sBound + 2 * NW;
+  int* sList = sCount + 1;               // [2 * n_tiles]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.z, g = blockIdx.y;
+  const int hpg = H / G, n_rows = Sq * hpg;
+  // the last rows see the most causal tiles: start them first
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const int n_tiles = (Sk + kTileK - 1) / kTileK;
+  const size_t rbase = (size_t)(b * G + g) * n_rows;  // lse and D rows
+
+  int kp[kScanBatch];
+  scan_load(kpos, Sk, 0, n_tiles * kTileK, tid, kp);
+  for (int e = tid; e < BM * CH; e += NT) {
+    const int r = e / CH, c = (e % CH) * 8, f = row0 + r;
+    const bool ok = f < n_rows;
+    const int qi = ok ? f / hpg : 0, h = g * hpg + (ok ? f % hpg : 0);
+    const size_t off = ((size_t)(b * Sq + qi) * H + h) * D + c;
+    cp_async16(sQ + r * RS + c, q + off, ok ? 16 : 0);
+    cp_async16(sdO + r * RS + c, dout + off, ok ? 16 : 0);
+  }
+  cp_async_commit();
+
+  // this thread's fragment rows: wrow + fr + 8 * h, h = 0, 1
+  const int fr = lane >> 2, fc = (lane & 3) * 2, wrow = warp * 16;
+  {  // D = rowsum(dO o O) in f32: two lanes a row, every other 16 bytes
+    const int r = lane >> 1, f = row0 + wrow + r;
+    float d = 0.f;
+    if (f < n_rows) {
+      const size_t off =
+          ((size_t)(b * Sq + f / hpg) * H + g * hpg + f % hpg) * D;
+      for (int c = (lane & 1) * 8; c < D; c += 16) {
+        float x[8], y[8];
+        load_f32<8>(o + off + c, x);
+        load_f32<8>(dout + off + c, y);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) d = fmaf(x[u], y[u], d);
+      }
+    }
+    d += __shfl_xor_sync(kFull, d, 1);
+    if ((lane & 1) == 0) {
+      sDel[wrow + r] = d;
+      sLse[wrow + r] = f < n_rows ? lse[rbase + f] : 0.f;
+      if (f < n_rows) delta[rbase + f] = d;
+    }
+  }
+  int qp[2];
+  bool rv[2];
+  int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int f = row0 + wrow + fr + 8 * h;
+    rv[h] = f < n_rows;
+    qp[h] = rv[h] ? qpos[f / hpg] : 0;
+    if (rv[h]) {
+      lo = min(lo, qp[h]);
+      hi = max(hi, qp[h]);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    lo = min(lo, __shfl_xor_sync(kFull, lo, off));
+    hi = max(hi, __shfl_xor_sync(kFull, hi, off));
+  }
+  if (lane == 0) {
+    sBound[warp] = lo;
+    sBound[NW + warp] = hi;
+  }
+  __syncthreads();
+  int qmin = INT_MAX, qmax = INT_MIN;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    qmin = min(qmin, sBound[w]);
+    qmax = max(qmax, sBound[NW + w]);
+  }
+  const int n = tile_list(kpos, Sk, 0, n_tiles, qmin, qmax, causal, window,
+                          kp, sList, sCount);
+  const float lse_r[2] = {sLse[wrow + fr], sLse[wrow + fr + 8]};
+  const float del_r[2] = {sDel[wrow + fr], sDel[wrow + fr + 8]};
+
+  auto load_tile = [&](int entry, int st) {
+    const int key0 = (entry >> 1) * kTileK;
+    bf16* tk = sK + st * kTileK * RS;
+    bf16* tv = sV + st * kTileK * RS;
+    for (int e = tid; e < kTileK * CH; e += NT) {
+      const int j = e / CH, c = (e % CH) * 8, key = key0 + j;
+      const bool ok = key < Sk;
+      const size_t off = ((size_t)(b * Sk + (ok ? key : 0)) * G + g) * D + c;
+      cp_async16(tk + j * RS + c, k + off, ok ? 16 : 0);
+      cp_async16(tv + j * RS + c, v + off, ok ? 16 : 0);
+    }
+    for (int j = tid; j < kTileK; j += NT) {
+      const bool ok = key0 + j < Sk;
+      cp_async4(sKp + st * kTileK + j, kpos + (ok ? key0 + j : 0), ok ? 4 : 0);
+    }
+  };
+  // the A fragment of the warp's 16 rows of Q or dO at k-step kk
+  auto frag = [&](const bf16* rows, int kk, uint32_t (&a)[4]) {
+    ldsm_x4(a, rows + (wrow + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+  };
+
+  uint32_t qf[kRegs ? D / 16 : 1][4], of[kRegs ? D / 16 : 1][4];
+  float dqa[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
+
+  if (n > 0) load_tile(sList[0], 0);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1, entry = sList[i];
+    if (i + 1 < n) load_tile(sList[i + 1], st ^ 1);
+    cp_async_commit();  // maybe empty: keeps the group count uniform
+    cp_async_wait<1>();  // all but the newest group have landed
+    __syncthreads();
+    if constexpr (kRegs) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          frag(sQ, kk, qf[kk]);
+          frag(sdO, kk, of[kk]);
+        }
+      }
+    }
+    const bf16* tk = sK + st * kTileK * RS;
+    const bf16* tv = sV + st * kTileK * RS;
+
+    // S = Q K^T and dP = dO V^T: K and V rows address as K in attn_fwd_tc
+    float s[NJ][4], dp[NJ][4];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t aq[4], ao[4];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          aq[x] = qf[kk][x];
+          ao[x] = of[kk][x];
+        }
+      } else {
+        frag(sQ, kk, aq);
+        frag(sdO, kk, ao);
+      }
+#pragma unroll
+      for (int nj = 0; nj < NJ / 2; ++nj) {
+        const int boff = (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                         kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bk[4], bv[4];
+        ldsm_x4(bk, tk + boff);
+        ldsm_x4(bv, tv + boff);
+        mma_bf16(s[2 * nj], aq, bk[0], bk[1]);
+        mma_bf16(s[2 * nj + 1], aq, bk[2], bk[3]);
+        mma_bf16(dp[2 * nj], ao, bv[0], bv[1]);
+        mma_bf16(dp[2 * nj + 1], ao, bv[2], bv[3]);
+      }
+    }
+
+    // element e of n-tile j is row fr + 8 * (e >> 1), key 8 * j + fc +
+    // (e & 1) of the tile; dS = P (dP - D) in place of S
+    const bool partial = entry & 1;
+    const int key0 = (entry >> 1) * kTileK;
+    const int* kps = sKp + st * kTileK;
+    uint32_t okb = 0xffffffffu;
+    if (partial) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, key = j * 8 + fc + (e & 1);
+          const int kq = key0 + key < Sk ? kps[key] : -1;
+          const int qq = qp[h];
+          const bool ok = rv[h] && kq >= 0 && (!causal || kq <= qq) &&
+                          (window <= 0 || kq > qq - window);
+          if (!ok) okb &= ~(1u << (4 * j + e));
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const float p = (okb >> (4 * j + e)) & 1
+                            ? ex2(fmaf(s[j][e], scale_log2, -lse_r[h]))
+                            : 0.f;
+        s[j][e] = p * (dp[j][e] - del_r[h]);
+      }
+
+    // dQ += dS K: dS (rounded to bf16) is the A fragment straight from the
+    // accumulators; K through ldmatrix.trans, as V in attn_fwd_tc
+#pragma unroll
+    for (int kk = 0; kk < kTileK / 16; ++kk) {
+      uint32_t da[4];
+      da[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      da[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      da[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      da[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        uint32_t bk[4];
+        ldsm_x4_t(bk, tk + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               RS + dn * 16 + (lane >> 4) * 8);
+        mma_bf16(dqa[2 * dn], da, bk[0], bk[1]);
+        mma_bf16(dqa[2 * dn + 1], da, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // stage st is free for tile i + 2
+  }
+  // dQ = scale dS K through shared memory (the Q rows, read by now), so
+  // that each row goes out as 16-byte stores of consecutive threads
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* dst = sQ + (wrow + fr + 8 * h) * RS + fc;
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+          __floats2bfloat162_rn(dqa[j][2 * h] * scale,
+                                dqa[j][2 * h + 1] * scale);
+  }
+  __syncthreads();
+  for (int e = tid; e < BM * CH; e += NT) {
+    const int r = e / CH, c = (e % CH) * 8, f = row0 + r;
+    if (f >= n_rows) continue;
+    const int qi = f / hpg, h = g * hpg + f % hpg;
+    *reinterpret_cast<uint4*>(dq + ((size_t)(b * Sq + qi) * H + h) * D + c) =
+        *reinterpret_cast<const uint4*>(sQ + r * RS + c);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(BwdCfg<D>::kWarps * 32, 2)
+attn_bwd_dkv(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             const int* __restrict__ qpos, const int* __restrict__ kpos,
+             bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk,
+             int H, int G, int causal, int window, float scale_log2,
+             float scale) {
+  using C = BwdCfg<D>;
+  constexpr int NW = C::kWarps, BR = C::kRows, RS = C::kStride;
+  constexpr int NT = NW * 32, CH = D / 8;  // threads; 16-byte chunks a row
+  constexpr int NR = BR / 8, ND = D / 8;   // 8-row n-tiles of S^T; of dK
+  constexpr bool kRegs = C::kKvRegs;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [kTileK][RS]
+  bf16* sV = sK + kTileK * RS;                   // [kTileK][RS]
+  bf16* sQ = sV + kTileK * RS;                   // [2][BR][RS]
+  bf16* sdO = sQ + 2 * BR * RS;                  // [2][BR][RS]
+  float* sLse = reinterpret_cast<float*>(sdO + 2 * BR * RS);  // [2][BR]
+  float* sDel = sLse + 2 * BR;                   // [2][BR]
+  int* sQp = reinterpret_cast<int*>(sDel + 2 * BR);  // [2][BR]
+  int* sKp = sQp + 2 * BR;                       // [kTileK]
+  int* sBound = sKp + kTileK;  // the key warps' min, max and all valid
+  int* sCount = sBound + 6;
+  int* sList = sCount + 1;            // [row_list_words(n_rows, BR)]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.z, g = blockIdx.y, key0 = blockIdx.x * kTileK;
+  const int hpg = H / G, n_rows = Sq * hpg;
+  const size_t rbase = (size_t)(b * G + g) * n_rows;  // lse and D rows
+
+  for (int e = tid; e < kTileK * CH; e += NT) {
+    const int j = e / CH, c = (e % CH) * 8, key = key0 + j;
+    const bool ok = key < Sk;
+    const size_t off = ((size_t)(b * Sk + (ok ? key : 0)) * G + g) * D + c;
+    cp_async16(sK + j * RS + c, k + off, ok ? 16 : 0);
+    cp_async16(sV + j * RS + c, v + off, ok ? 16 : 0);
+  }
+  cp_async_commit();
+  // the tile's key positions (-1 past Sk) and their bounds over the valid
+  // ones, from the two warps that hold one key a lane
+  if (warp < kTileK / 32) {
+    const int kq = key0 + tid < Sk ? kpos[key0 + tid] : -1;
+    sKp[tid] = kq;
+    int lo = kq >= 0 ? kq : INT_MAX, hi = kq >= 0 ? kq : INT_MIN;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(kFull, lo, off));
+      hi = max(hi, __shfl_xor_sync(kFull, hi, off));
+    }
+    const bool all = __all_sync(kFull, kq >= 0);
+    if (lane == 0) {
+      sBound[warp] = lo;
+      sBound[2 + warp] = hi;
+      sBound[4 + warp] = all;
+    }
+  }
+  __syncthreads();
+  const int n = row_list(qpos, n_rows, hpg, BR, min(sBound[0], sBound[1]),
+                         max(sBound[2], sBound[3]), sBound[4] && sBound[5],
+                         causal, window, sList, sCount);
+
+  // this thread's fragment keys: wrow + fr + 8 * h, h = 0, 1
+  const int fr = lane >> 2, fc = (lane & 3) * 2, wrow = warp * 16;
+  const int kq[2] = {sKp[wrow + fr], sKp[wrow + fr + 8]};
+
+  auto load_rows = [&](int entry, int st) {
+    const int r0 = (entry >> 1) * BR;
+    bf16* tq = sQ + st * BR * RS;
+    bf16* tdo = sdO + st * BR * RS;
+    for (int e = tid; e < BR * CH; e += NT) {
+      const int r = e / CH, c = (e % CH) * 8, f = r0 + r;
+      const bool ok = f < n_rows;
+      const int qi = ok ? f / hpg : 0, h = g * hpg + (ok ? f % hpg : 0);
+      const size_t off = ((size_t)(b * Sq + qi) * H + h) * D + c;
+      cp_async16(tq + r * RS + c, q + off, ok ? 16 : 0);
+      cp_async16(tdo + r * RS + c, dout + off, ok ? 16 : 0);
+    }
+    for (int r = tid; r < BR; r += NT) {
+      const int f = r0 + r;
+      const bool ok = f < n_rows;
+      cp_async4(sLse + st * BR + r, lse + rbase + (ok ? f : 0), ok ? 4 : 0);
+      cp_async4(sDel + st * BR + r, delta + rbase + (ok ? f : 0), ok ? 4 : 0);
+      cp_async4(sQp + st * BR + r, qpos + (ok ? f / hpg : 0), ok ? 4 : 0);
+    }
+  };
+  // the A fragment of the warp's 16 keys of K or V at k-step kk
+  auto frag = [&](const bf16* keys, int kk, uint32_t (&a)[4]) {
+    ldsm_x4(a, keys + (wrow + (lane & 15)) * RS + kk * 16 + (lane >> 4) * 8);
+  };
+
+  uint32_t kf[kRegs ? D / 16 : 1][4], vf[kRegs ? D / 16 : 1][4];
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int j = 0; j < ND; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+
+  if (n > 0) load_rows(sList[0], 0);
+  cp_async_commit();
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1, entry = sList[i];
+    if (i + 1 < n) load_rows(sList[i + 1], st ^ 1);
+    cp_async_commit();  // maybe empty: keeps the group count uniform
+    cp_async_wait<1>();  // all but the newest group (K and V too) landed
+    __syncthreads();
+    if constexpr (kRegs) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          frag(sK, kk, kf[kk]);
+          frag(sV, kk, vf[kk]);
+        }
+      }
+    }
+    const bf16* tq = sQ + st * BR * RS;
+    const bf16* tdo = sdO + st * BR * RS;
+    const float* tl = sLse + st * BR;
+    const float* td = sDel + st * BR;
+    const int* tp = sQp + st * BR;
+
+    // S^T = K Q^T and dP^T = V dO^T: Q and dO rows address as K in
+    // attn_fwd_tc
+    float s[NR][4], dp[NR][4];
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ak[4], av[4];
+      if constexpr (kRegs) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          ak[x] = kf[kk][x];
+          av[x] = vf[kk][x];
+        }
+      } else {
+        frag(sK, kk, ak);
+        frag(sV, kk, av);
+      }
+#pragma unroll
+      for (int nj = 0; nj < NR / 2; ++nj) {
+        const int boff = (nj * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
+                         kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bq[4], bo[4];
+        ldsm_x4(bq, tq + boff);
+        ldsm_x4(bo, tdo + boff);
+        mma_bf16(s[2 * nj], ak, bq[0], bq[1]);
+        mma_bf16(s[2 * nj + 1], ak, bq[2], bq[3]);
+        mma_bf16(dp[2 * nj], av, bo[0], bo[1]);
+        mma_bf16(dp[2 * nj + 1], av, bo[2], bo[3]);
+      }
+    }
+
+    // element e of n-tile j is key fr + 8 * (e >> 1) of the warp, row
+    // 8 * j + fc + (e & 1) of the step: P^T in place of S^T, dS^T in place
+    // of dP^T
+    const bool partial = entry & 1;
+    const int r0 = (entry >> 1) * BR;
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = 8 * j + fc + (e & 1), kp = kq[e >> 1];
+        bool ok = true;
+        if (partial) {
+          const int qq = tp[r];
+          ok = r0 + r < n_rows && kp >= 0 && (!causal || kp <= qq) &&
+               (window <= 0 || kp > qq - window);
+        }
+        const float p = ok ? ex2(fmaf(s[j][e], scale_log2, -tl[r])) : 0.f;
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - td[r]);
+      }
+
+    // dV += P^T dO and dK += dS^T Q: P^T and dS^T (rounded to bf16) are A
+    // fragments straight from the accumulators; dO and Q through
+    // ldmatrix.trans, as V in attn_fwd_tc
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) {
+      uint32_t pa[4], da[4];
+      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      da[0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+      da[1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+      da[2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+      da[3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+#pragma unroll
+      for (int dn = 0; dn < ND / 2; ++dn) {
+        const int toff = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * RS +
+                         dn * 16 + (lane >> 4) * 8;
+        uint32_t bo[4], bq[4];
+        ldsm_x4_t(bo, tdo + toff);
+        ldsm_x4_t(bq, tq + toff);
+        mma_bf16(dva[2 * dn], pa, bo[0], bo[1]);
+        mma_bf16(dva[2 * dn + 1], pa, bo[2], bo[3]);
+        mma_bf16(dka[2 * dn], da, bq[0], bq[1]);
+        mma_bf16(dka[2 * dn + 1], da, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // stage st is free for step i + 2
+  }
+  // dK = scale dS^T Q and dV through shared memory (the K and V rows, read
+  // by now), so that each key's row goes out as 16-byte stores
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    bf16* tk = sK + (wrow + fr + 8 * h) * RS + fc;
+    bf16* tv = sV + (wrow + fr + 8 * h) * RS + fc;
+#pragma unroll
+    for (int j = 0; j < ND; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(tk + 8 * j) = __floats2bfloat162_rn(
+          dka[j][2 * h] * scale, dka[j][2 * h + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(tv + 8 * j) =
+          __floats2bfloat162_rn(dva[j][2 * h], dva[j][2 * h + 1]);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < kTileK * CH; e += NT) {
+    const int j = e / CH, c = (e % CH) * 8, key = key0 + j;
+    if (key >= Sk) continue;
+    const size_t off = ((size_t)(b * Sk + key) * G + g) * D + c;
+    *reinterpret_cast<uint4*>(dk + off) =
+        *reinterpret_cast<const uint4*>(sK + j * RS + c);
+    *reinterpret_cast<uint4*>(dv + off) =
+        *reinterpret_cast<const uint4*>(sV + j * RS + c);
+  }
+}
+
+struct BwdArgs {
+  const bf16 *q, *k, *v, *o, *dout;
+  const float* lse;
+  const int *qpos, *kpos;
+  bf16 *dq, *dk, *dv;
+  float* delta;
+  int B, Sq, Sk, H, G, causal, window;
+  float scale;
+};
+
+template <int D>
+cudaError_t launch_bwd(const BwdArgs& a, cudaStream_t stream) {
+  using C = BwdCfg<D>;
+  static size_t granted_dq = 48 << 10, granted_dkv = 48 << 10;
+  const long long rows = (long long)a.Sq * (a.H / a.G);
+  if (rows > INT_MAX - 64) return cudaErrorInvalidValue;
+  const int n_tiles = (a.Sk + kTileK - 1) / kTileK;
+  const size_t smem_dq = C::kDqSmem + sizeof(int) * 2 * n_tiles;
+  const size_t smem_dkv =
+      C::kDkvSmem + sizeof(int) * row_list_words((int)rows, C::kRows);
+  cudaError_t err = allow_smem(attn_bwd_dq<D>, smem_dq, &granted_dq);
+  if (err != cudaSuccess) return err;
+  err = allow_smem(attn_bwd_dkv<D>, smem_dkv, &granted_dkv);
+  if (err != cudaSuccess) return err;
+  const float scale_log2 = a.scale * kLog2e;  // as the forward's
+  const dim3 grid_dq((unsigned)((rows + C::kQRows - 1) / C::kQRows), a.G,
+                     a.B);
+  attn_bwd_dq<D><<<grid_dq, C::kWarps * 32, smem_dq, stream>>>(
+      a.q, a.k, a.v, a.o, a.dout, a.lse, a.qpos, a.kpos, a.dq, a.delta, a.Sq,
+      a.Sk, a.H, a.G, a.causal, a.window, scale_log2, a.scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_bwd_dkv<D><<<dim3(n_tiles, a.G, a.B), C::kWarps * 32, smem_dkv,
+                    stream>>>(a.q, a.k, a.v, a.dout, a.lse, a.delta, a.qpos,
+                              a.kpos, a.dk, a.dv, a.Sq, a.Sk, a.H, a.G,
+                              a.causal, a.window, scale_log2, a.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_bwd(int D, const BwdArgs& a, cudaStream_t s) {
+  switch (D) {
+    case 16: return launch_bwd<16>(a, s);
+    case 32: return launch_bwd<32>(a, s);
+    case 64: return launch_bwd<64>(a, s);
+    case 128: return launch_bwd<128>(a, s);
+    case 160: return launch_bwd<160>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1338,18 +2034,19 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. variant: 0 = attn_fwd (any dtype and
 // Sq), 1 = attn_fwd_tc (bfloat16), 2 = attn_decode_split + merge (Sq == 1;
-// scratch holds (2 + D) * B * H * n_split floats). Returns a cudaError_t
-// (0 = launched).
+// scratch holds (2 + D) * B * H * n_split floats). lse: null, or (variant 1
+// only) B * Sq * H floats for each row's log-sum-exp (attn_fwd_tc's kLse).
+// Returns a cudaError_t (0 = launched).
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                               const void* qpos, const void* kpos, void* o,
-                              int B, int Sq, int Sk, int H, int G, int D,
-                              int causal, int window, float scale, int dtype,
-                              int variant, int n_split, void* scratch,
-                              int device, void* stream) {
+                              void* lse, int B, int Sq, int Sk, int H, int G,
+                              int D, int causal, int window, float scale,
+                              int dtype, int variant, int n_split,
+                              void* scratch, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (B < 1 || Sq < 1 || Sk < 1 || G < 1 || H % G != 0 || dtype < 0 ||
-      dtype > 1)
+      dtype > 1 || (lse != nullptr && variant != 1))
     return (int)cudaErrorInvalidValue;
   const int* qp = static_cast<const int*>(qpos);
   const int* kp = static_cast<const int*>(kpos);
@@ -1363,8 +2060,8 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v,
                                    causal, window, scale, s);
     case 1:
       if (dtype != 1) return (int)cudaErrorInvalidValue;
-      return (int)dispatch_tc(D, q, k, v, qp, kp, o, B, Sq, Sk, H, G, causal,
-                              window, scale, s);
+      return (int)dispatch_tc(D, q, k, v, qp, kp, o, static_cast<float*>(lse),
+                              B, Sq, Sk, H, G, causal, window, scale, s);
     case 2: {
       if (Sq != 1 || n_split < 1 || scratch == nullptr)
         return (int)cudaErrorInvalidValue;
@@ -1429,6 +2126,47 @@ int repro_flash_decode_merge(const void* part, void* o, int rows, int P,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return (int)dispatch_merge<float>(D, p, o, rows, P, s);
   return (int)dispatch_merge<bf16>(D, p, o, rows, P, s);
+}
+
+// The backward of repro_flash_attention_fwd's variant 1 (bfloat16): q, o,
+// dout and dq (B, Sq, H, D); k, v, dk and dv (B, Sk, G, D); lse the
+// forward's (B * Sq * H floats); delta scratch of as many floats, written
+// here (each row's D). Launches attn_bwd_dq, then attn_bwd_dkv. Returns a
+// cudaError_t (0 = launched).
+int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                              const void* o, const void* dout,
+                              const void* lse, const void* qpos,
+                              const void* kpos, void* dq, void* dk, void* dv,
+                              void* delta, int B, int Sq, int Sk, int H,
+                              int G, int D, int causal, int window,
+                              float scale, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (B < 1 || Sq < 1 || Sk < 1 || G < 1 || H % G != 0 || lse == nullptr ||
+      delta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  BwdArgs a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.o = static_cast<const bf16*>(o);
+  a.dout = static_cast<const bf16*>(dout);
+  a.lse = static_cast<const float*>(lse);
+  a.qpos = static_cast<const int*>(qpos);
+  a.kpos = static_cast<const int*>(kpos);
+  a.dq = static_cast<bf16*>(dq);
+  a.dk = static_cast<bf16*>(dk);
+  a.dv = static_cast<bf16*>(dv);
+  a.delta = static_cast<float*>(delta);
+  a.B = B;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.H = H;
+  a.G = G;
+  a.causal = causal;
+  a.window = window;
+  a.scale = scale;
+  return (int)dispatch_bwd(D, a, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -16,6 +16,13 @@ wrapper picks one by dtype and Sq (``choose_variant``):
 - ``"simt"``: f32 with Sq > 1, f32 on CUDA cores (tensor cores would run
   f32 as TF32).
 
+Training (``kernels.autograd.FlashAttentionFn``, on CUDA bf16 with Sq > 1,
+where the forward runs ``"tc"``: ``backward_on_kernel``) runs the tc
+kernel's instantiation that also writes each row's log-sum-exp
+(``flash_attention_fwd_lse``) and the backward kernels ``attn_bwd_dq`` and
+``attn_bwd_dkv`` (``flash_attention_backward``); ``flash_attention_bwd_ref``
+is their plain version.
+
 A decode over a cache split among ranks runs the split kernel in two
 steps with an exchange between them: ``flash_decode_partials`` (the split
 kernel and a merge into one packed partial a row: m, l and the
@@ -38,6 +45,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels import build
 from repro_torch.kernels.autograd import refuse_grad
 from repro_torch.models.common import acc_dtype
@@ -53,16 +61,21 @@ DECODE_BLOCKS_PER_SM = 5
 VARIANTS = ("simt", "tc", "split")
 _VARIANT_CODE = {name: i for i, name in enumerate(VARIANTS)}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# repro_flash_attention_fwd(q, k, v, qpos, kpos, o, B, Sq, Sk, H, G, D,
+# repro_flash_attention_fwd(q, k, v, qpos, kpos, o, lse, B, Sq, Sk, H, G, D,
 #     causal, window, scale, dtype, variant, n_split, scratch, device, stream)
+# repro_flash_attention_bwd(q, k, v, o, do, lse, qpos, kpos, dq, dk, dv,
+#     delta, B, Sq, Sk, H, G, D, causal, window, scale, device, stream)
 # repro_flash_decode_partials(q, k, v, qpos, kpos, part, B, Sk, H, G, D,
 #     causal, window, scale, dtype, n_split, scratch, device, stream)
 # repro_flash_decode_merge(part, o, rows, P, D, dtype, device, stream)
 _SIGNATURES = {
     "repro_flash_attention_fwd": (
-        ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+    "repro_flash_attention_bwd": (
+        ctypes.c_int, [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     "repro_flash_decode_partials": (
         ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -128,6 +141,56 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.where(ok, p, torch.zeros((), dtype=p.dtype, device=p.device))
     acc = torch.einsum("bgqst,btgd->bsgqd", p, v.to(p.dtype))
     return _finish(acc, p.sum(dim=-1, keepdim=True), q)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True,
+                            window: int = 0,
+                            qpos: Optional[torch.Tensor] = None,
+                            kpos: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Plain version of the backward kernels: (dq, dk, dv) of attention at
+    its output ``o`` for the upstream gradient ``do``, computed as the
+    kernels do it. Each row's log-sum-exp of its valid scores and
+    D = rowsum(do * o) in f32 (f64 for f64 inputs); then key tiles of 64:
+    P = exp(s - lse) (0 where masked), dV = P^T do, dP = do V^T,
+    dS = P (dP - D), dK = scale dS^T q, dq += scale dS K, with P and dS
+    rounded to the inputs' dtype before their products, as the kernels'
+    bf16 operands are, and every product accumulated in f32 (f64). A row
+    with no valid key gets zero gradient. Outputs in the inputs' dtypes."""
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    hpg, acc, wd = H // G, acc_dtype(q), q.dtype
+    ok = _mask(_positions(qpos, Sq, q.device).long(),
+               _positions(kpos, Sk, q.device).long(), causal, window)
+    s = _scores(q, k, ok)                              # (B, G, H/G, Sq, Sk)
+    zero = torch.zeros((), dtype=acc, device=q.device)
+    m = s.amax(dim=-1, keepdim=True)
+    l = torch.where(ok, torch.exp(s - m), zero).sum(dim=-1, keepdim=True)
+    lse = torch.where(l > 0, m + torch.log(l), zero + math.inf)
+
+    def group(x):                                      # (B, G, H/G, Sq, D)
+        return x.to(acc).reshape(B, Sq, G, hpg, D).permute(0, 2, 3, 1, 4)
+
+    qg, dog = group(q), group(do)
+    delta = (dog * group(o)).sum(dim=-1, keepdim=True)
+    scale = 1.0 / math.sqrt(D)
+    dq = torch.zeros_like(qg)
+    dk = torch.zeros((B, Sk, G, D), dtype=acc, device=q.device)
+    dv = torch.zeros_like(dk)
+    for t0 in range(0, Sk, TILE_KEYS):
+        t = slice(t0, t0 + TILE_KEYS)
+        kt, vt = k[:, t].to(acc), v[:, t].to(acc)
+        p = torch.where(ok[:, t], torch.exp(s[..., t] - lse), zero)
+        dv[:, t] = torch.einsum("bgqst,bgqsd->btgd", p.to(wd).to(acc), dog)
+        dp = torch.einsum("bgqsd,btgd->bgqst", dog, vt)
+        ds = (p * (dp - delta)).to(wd).to(acc)
+        dk[:, t] = scale * torch.einsum("bgqst,bgqsd->btgd", ds, qg)
+        dq += scale * torch.einsum("bgqst,btgd->bgqsd", ds, kt)
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return dq.to(wd), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -266,6 +329,15 @@ def _check(q, k, v, qpos, kpos) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def backward_on_kernel(q: torch.Tensor) -> bool:
+    """Whether training runs the backward kernels: where the forward runs
+    the tc kernel (CUDA, bf16, Sq > 1). Elsewhere (the CPU, f32, f64, the
+    dry run's meta tensors) ``FlashAttentionFn`` differentiates the
+    caller's plain function."""
+    return q.device.type == "cuda" and choose_variant(q.dtype,
+                                                      q.shape[1]) == "tc"
+
+
 def _check_variant(variant: str, dtype: torch.dtype, Sq: int) -> None:
     if variant not in _VARIANT_CODE:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
@@ -325,6 +397,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return meta.flash_attention(q, k, v, qpos, kpos, causal, window)
     if dev.type != "cuda":
         raise ValueError(f"no flash_attention for device {dev}")
+    return _launch_fwd(q, k, v, causal, window, qpos, kpos, variant,
+                       n_split, False)[0]
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = True,
+                            window: int = 0,
+                            qpos: Optional[torch.Tensor] = None,
+                            kpos: Optional[torch.Tensor] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tc kernel's forward for training: (o, lse), o as
+    ``flash_attention`` gives it, lse (B, G, Sq * H/G) f32, the log-sum-exp
+    of each packed row f = position * H/G + head in group in the log2
+    domain of the scaled scores (+inf for a row with no valid key), which
+    ``flash_attention_backward`` reads. CUDA bf16 with Sq > 1 only
+    (``backward_on_kernel``); raises on inputs that require grad under grad
+    mode, as ``flash_attention`` does. The launch counts as a ``"tc"``
+    one."""
+    refuse_grad("flash_attention_fwd_lse", q, k, v)
+    if not backward_on_kernel(q):
+        raise ValueError(f"flash_attention_fwd_lse runs the tc kernel on "
+                         f"CUDA bf16 with Sq > 1, got {q.dtype} "
+                         f"{tuple(q.shape)} on {q.device}")
+    return _launch_fwd(q, k, v, causal, window, qpos, kpos, "tc", None,
+                       True)
+
+
+def _launch_fwd(q, k, v, causal, window, qpos, kpos, variant, n_split,
+                with_lse: bool) -> Tuple[torch.Tensor,
+                                         Optional[torch.Tensor]]:
+    dev = q.device
     qpos = _positions(qpos, q.shape[1], dev)
     kpos = _positions(kpos, k.shape[1], dev)
     _check(q, k, v, qpos, kpos)
@@ -335,19 +438,84 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     # the raw handle of the current stream, without building a Stream
     stream = torch._C._cuda_getCurrentRawStream(device)
     out = torch.empty_like(q)
+    lse = (torch.empty((B, G, Sq * (H // G)), dtype=torch.float32,
+                       device=dev) if with_lse else None)
     scratch = None
     if variant == "split":
         n_split = n_split or decode_splits(B, G, Sk, _n_sm(device))
         scratch = _split_scratch((2 + D) * B * H * n_split, device, stream)
     err = lib.repro_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qpos.data_ptr(),
-        kpos.data_ptr(), out.data_ptr(), B, Sq, Sk, H, G, D, int(causal),
-        int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
+        kpos.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), B, Sq, Sk, H, G, D,
+        int(causal), int(window), 1.0 / math.sqrt(D), _DTYPE_CODE[q.dtype],
         _VARIANT_CODE[variant], n_split or 0,
         None if scratch is None else scratch.data_ptr(), device, stream)
     build.raise_on_error(lib, err, f"flash_attention ({variant})")
     _count(variant, (B, Sq, Sk, H, G, D))
-    return out
+    return out, lse
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             qpos: Optional[torch.Tensor] = None,
+                             kpos: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of attention at its output o for the upstream gradient
+    do (contiguous, q's shape and dtype), from the forward's lse
+    (``flash_attention_fwd_lse``): the kernels attn_bwd_dq (D and dq) and
+    attn_bwd_dkv (dk and dv), ``flash_attention_bwd_ref``'s arithmetic.
+    CUDA bf16 tensors, as the tc kernel takes; raises on others, and on
+    inputs that require grad under grad mode. A call counts once in
+    ``flash_attention_backward.launches``."""
+    refuse_grad("flash_attention_backward", q, k, v, o, do)
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"the backward kernels take CUDA tensors, got "
+                         f"{dev}; the plain version is "
+                         f"flash_attention_bwd_ref")
+    _check_variant("tc", q.dtype, q.shape[1])
+    qpos = _positions(qpos, q.shape[1], dev)
+    kpos = _positions(kpos, k.shape[1], dev)
+    _check(q, k, v, qpos, kpos)
+    B, Sq, H, D = q.shape
+    Sk, G = k.shape[1], k.shape[2]
+    for name, t in (("o", o), ("do", do)):
+        if (t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous()
+                or t.data_ptr() % 16 or t.get_device() != q.get_device()):
+            raise ValueError(f"{name} must be a contiguous, 16-byte aligned "
+                             f"{q.dtype} {tuple(q.shape)} on q's device")
+    if (lse.shape != (B, G, Sq * (H // G)) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.get_device() != q.get_device()):
+        raise ValueError(f"lse must be contiguous f32 {(B, G, Sq * H // G)} "
+                         f"on q's device, got {lse.dtype} "
+                         f"{tuple(lse.shape)}")
+    lib = build.load("flash_attention", _SIGNATURES)
+    device = dev.index or 0
+    stream = torch._C._cuda_getCurrentRawStream(device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty_like(lse)
+    # the operation's name holds no kernel's name, so that a reader of the
+    # kernels by name (attn_bwd) cannot count it as one
+    with spans.launch("launch::flash_attention_backward"):
+        err = lib.repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), qpos.data_ptr(), kpos.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B,
+            Sq, Sk, H, G, D, int(causal), int(window), 1.0 / math.sqrt(D),
+            device, stream)
+    build.raise_on_error(lib, err, "flash_attention_backward")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+#: backward calls of ``FlashAttentionFn`` that differentiated the caller's
+#: plain function (not ``backward_on_kernel``)
+flash_attention_backward.plain_calls = 0
 
 
 flash_attention.launches = 0

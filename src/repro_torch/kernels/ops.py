@@ -5,8 +5,8 @@ The kernels take the model layout, so no transpose or GQA broadcast
 happens here: kv head h // (H/G) is read by index inside the attention
 kernel, and the GLA scan reads (B, T, H, K/V) as it is. When grad mode is
 on and an input requires grad, the call goes through the autograd
-Function of ``kernels.autograd``: the kernel forward, the plain version's
-backward.
+Function of ``kernels.autograd``: the kernel forward, and the attention
+kernel's backward or the plain version's (``kernels.autograd``).
 """
 from __future__ import annotations
 
@@ -27,11 +27,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     self_attention: bool = False,
                     block_k: Optional[int] = None) -> torch.Tensor:
     """Flash attention. q (B,S,H,D), k/v (B,S,G,D) model layout, positions
-    of any integer type; returns (B,S,H,D). The backward is the caller's
-    plain function (``models.common.attention_plain``): ``self_attention``
-    (qpos and kpos are the same positions) lets it take the banded plain
-    version, as JAX trains through it; a ``block_k`` names a caller that
-    calls ``attention_chunked`` at that ``block_k`` directly."""
+    of any integer type; returns (B,S,H,D). The backward runs the backward
+    kernels on CUDA bf16 (``flash_attention.backward_on_kernel``), else it
+    is the caller's plain function (``models.common.attention_plain``):
+    ``self_attention`` (qpos and kpos are the same positions) lets it take
+    the banded plain version, as JAX trains through it; a ``block_k`` names
+    a caller that calls ``attention_chunked`` at that ``block_k``
+    directly."""
     if qpos is not None:
         qpos = qpos.to(device=q.device, dtype=torch.int32).contiguous()
     if kpos is not None:

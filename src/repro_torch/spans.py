@@ -51,6 +51,19 @@ SPANS = (
 _OFF = contextlib.nullcontext()
 
 
+def launch(name: str):
+    """Around a kernel launch through ``ctypes`` while a profiler collects
+    on this thread: an operation ``name`` that owns the kernel's device
+    time, so that the span open around it holds that time. The profiler
+    credits a kernel to the innermost operation open at its launch that is
+    not a range of ``record_function``; without one the kernel would go to
+    an operation outside the span (``FlashAttentionFnBackward``, around the
+    flash backward's span). Otherwise a no-op context."""
+    if not torch._C._autograd._profiler_enabled():
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
 def span(key: str):
     """The range ``PREFIX + key`` as a context while a profiler collects
     on this thread, else a no-op context."""

@@ -289,3 +289,91 @@ def test_flash_attention_backward_follows_the_callers_block_k(causal):
     assert not all(torch.equal(a, b) for a, b in zip(got, other))
     dispatch = grads(lambda *x: ops.flash_attention(*x, **kw))
     assert all(torch.equal(a, b) for a, b in zip(dispatch, other))
+
+
+# The backward kernels' plain version (flash_attention_bwd_ref, the kernels'
+# recurrence) against autograd of attention_plain: ATTN's cases, rows that
+# see no key, keys over three 64-key tiles with empty slots, and each head
+# dim of the kernels. (B, Sq, Sk, H, G, D, causal, window, qpos, kpos)
+BWD = {case: (*ATTN[case][:8], None, None) for case in ATTN}
+BWD["no_key_rows"] = (1, 4, 6, 2, 1, 16, True, 0, torch.arange(4),
+                      torch.arange(6) + 2)               # rows 0, 1: no key
+BWD["tiles"] = (1, 70, 150, 4, 2, 16, True, 0, torch.arange(80, 150),
+                torch.where((torch.arange(150) >= 10)
+                            & (torch.arange(150) < 20), -1,
+                            torch.arange(150)))
+BWD.update({f"d{D}": (1, 5, 5, 2, 1, D, True, 0, None, None)
+            for D in fa.HEAD_DIMS})
+
+
+def _bwd_inputs(case, dtype):
+    B, Sq, Sk, H, G, D, causal, window, qpos, kpos = BWD[case]
+    if case in ATTN:
+        q, k, v, causal, window, qpos, kpos, _ = _attn_inputs(case, dtype,
+                                                              seed=6)
+    else:
+        g = torch.Generator().manual_seed(6)
+        q, k, v = (torch.randn(s, generator=g, dtype=F64).to(dtype) for s in
+                   ((B, Sq, H, D), (B, Sk, G, D), (B, Sk, G, D)))
+        qpos = torch.arange(Sq) if qpos is None else qpos
+        kpos = torch.arange(Sk) if kpos is None else kpos
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(7),
+                     dtype=F64).to(dtype)
+    return q, k, v, do, dict(causal=causal, window=window,
+                             qpos=qpos.to(torch.int32),
+                             kpos=kpos.to(torch.int32))
+
+
+def _plain_grads(q, k, v, do, kw):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o = cm.attention_plain(*leaves, **kw)
+    return o.detach(), torch.autograd.grad(o, leaves, do)
+
+
+@pytest.mark.parametrize("dtype", [F64, torch.float32])
+@pytest.mark.parametrize("case", list(BWD))
+def test_flash_backward_plain_version_matches_autograd(case, dtype):
+    q, k, v, do, kw = _bwd_inputs(case, dtype)
+    o, want = _plain_grads(q, k, v, do, kw)
+    if case == "no_key_rows":
+        # autograd of the plain function is nan through a row with no
+        # valid key; such a row adds nothing to dk and dv, and its dq is 0
+        o, want = _plain_grads(q[:, 2:], k, v, do[:, 2:],
+                               dict(kw, qpos=kw["qpos"][2:]))
+        o = torch.cat([torch.zeros_like(q[:, :2]), o], dim=1)
+        want = (torch.cat([torch.zeros_like(q[:, :2]), want[0]], dim=1),
+                *want[1:])
+    got = fa.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    tol = dict(atol=1e-10, rtol=1e-8) if dtype == F64 else dict(atol=2e-5,
+                                                                 rtol=1e-4)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a, b, **tol)
+
+
+@pytest.mark.parametrize("case", list(ATTN))
+def test_flash_backward_plain_version_in_bf16(case):
+    """bf16: P and dS rounded as the kernels' operands are; within the
+    card's bf16 gradient tolerance (chip_smoke.py's GRAD_RTOL, 5e-2) of the
+    f32 gradients of the same bf16 values, in norm."""
+    q, k, v, do, kw = _bwd_inputs(case, torch.bfloat16)
+    f32 = [t.float() for t in (q, k, v, do)]
+    o, want = _plain_grads(*f32, kw)
+    got = fa.flash_attention_bwd_ref(q, k, v, o.bfloat16(), do, **kw)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert (a.float() - b).norm() <= 2e-2 * b.norm()
+
+
+def test_flash_backward_dispatch_on_the_cpu_takes_the_plain_path():
+    """CPU (and f32, f64): the Function's backward is autograd of the plain
+    function, counted in plain_calls; no kernel launch."""
+    q, k, v, do, kw = _bwd_inputs("gqa", torch.float32)
+    assert not fa.backward_on_kernel(q)
+    counter = fa.flash_attention_backward
+    before = (counter.launches, counter.plain_calls)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, self_attention=True, **kw)
+    torch.autograd.grad(out, leaves, do)
+    assert (counter.launches, counter.plain_calls) == (before[0],
+                                                       before[1] + 1)

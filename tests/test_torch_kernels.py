@@ -307,7 +307,8 @@ class _OnCuda(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("kernel", ["gla_scan", "flash_attention"])
+@pytest.mark.parametrize("kernel", ["gla_scan", "flash_attention",
+                                    "flash_attention_backward"])
 def test_cuda_tensor_launches_or_raises_never_falls_back(kernel, tmp_path,
                                                          monkeypatch):
     """On a CUDA tensor the wrappers (and ops) build and launch the kernel
@@ -327,14 +328,29 @@ def test_cuda_tensor_launches_or_raises_never_falls_back(kernel, tmp_path,
         calls = [lambda: gs.gla_scan(*args, u),
                  lambda: ops.gla(*args, u)]
         counter = gs.gla_scan
-    else:
+    elif kernel == "flash_attention":
         monkeypatch.setattr(fa, "flash_attention_ref", no_fallback)
         q = torch.zeros((1, 4, 2, 16)).as_subclass(_OnCuda)
         pos = torch.arange(4, dtype=torch.int32).as_subclass(_OnCuda)
         calls = [lambda: fa.flash_attention(q, q, q, qpos=pos, kpos=pos)]
         counter = fa.flash_attention
+    else:  # the training forward and the backward kernels (bf16)
+        monkeypatch.setattr(fa, "flash_attention_ref", no_fallback)
+        monkeypatch.setattr(fa, "flash_attention_bwd_ref", no_fallback)
+        q = torch.zeros((1, 4, 2, 16),
+                        dtype=torch.bfloat16).as_subclass(_OnCuda)
+        lse = torch.zeros((1, 2, 4)).as_subclass(_OnCuda)
+        pos = torch.arange(4, dtype=torch.int32).as_subclass(_OnCuda)
+        calls = [lambda: fa.flash_attention_fwd_lse(q, q, q, qpos=pos,
+                                                    kpos=pos),
+                 lambda: fa.flash_attention_backward(q, q, q, q, lse, q,
+                                                     qpos=pos, kpos=pos)]
+        counter = fa.flash_attention_backward
+        forward_launches = fa.flash_attention.launches
     before = counter.launches
     for call in calls:
         with pytest.raises(RuntimeError, match="nvcc not found"):
             call()
     assert counter.launches == before
+    if kernel == "flash_attention_backward":
+        assert fa.flash_attention.launches == forward_launches
