@@ -62,6 +62,15 @@ def load(root: Path, name: str) -> Cell:
                            if _reports(x, name, names)])
 
 
+def family_module(kind: str, family: str) -> ModuleType:
+    """``<kind>/<family>.py`` of a configuration's ``family``: its reference
+    (``reference``) or its operation count (``counts``), so a family is
+    added as files."""
+    if not (BENCH / kind / f"{family}.py").is_file():
+        raise ValueError(f"no {kind} for family {family!r}")
+    return importlib.import_module(f"bench.{kind}.{family}")
+
+
 def metric_reader(name: str) -> ModuleType:
     """``metrics/<name>.py``, or else ``metrics/<name up to its first
     dot>.py``, the reader that one quantity shares across the kinds of

@@ -5,8 +5,9 @@ every step's rows different.
 Set-up builds the one step object, with the model and optimizer state,
 and drives it through its first ``CHECKED`` steps: the warm-up, and the
 steps the reference follows. The window goes on with the same object.
-Compared after the window, against the float32 reference over the same
-weights and rows:
+Read after the window, against the float32 reference over the same
+weights and rows (``limits/<cell>.json`` names those held to a limit; the
+rest are printed under ``info``):
 
 - ``loss_gap``: each of the three steps' loss, the largest relative gap;
   ``first_loss_gap``: the first step's alone;

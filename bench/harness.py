@@ -5,19 +5,13 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
 from bench import reference, weights
 from bench.cell import Cell
-
-#: the configuration file's keys that the program's ArchConfig takes
-ARCH_KEYS = ("name", "family", "n_layers", "d_model", "n_heads",
-             "n_kv_heads", "d_ff", "vocab", "head_dim", "rope_theta",
-             "tie_embeddings", "dtype", "pad_vocab_to")
-
 
 @dataclasses.dataclass
 class Context:
@@ -66,14 +60,22 @@ def free(device: torch.device) -> None:
         torch.cuda.empty_cache()
 
 
+def arch_config(config: Mapping):
+    """The program's ArchConfig of a configuration file: every key that
+    names one of its fields, JSON lists as tuples. The other keys (source,
+    reduced, assumed, departures, deployment, rms_norm_eps, max_positions)
+    are the reference's alone."""
+    from repro_torch.configs.base import ArchConfig
+    fields = {f.name for f in dataclasses.fields(ArchConfig)}
+    return ArchConfig(**{k: tuple(v) if isinstance(v, list) else v
+                         for k, v in config.items() if k in fields})
+
+
 def program_model(ctx: Context):
     """The program's model of the configuration, its weights loaded from
     the benchmark's state dict."""
-    from repro_torch.configs.base import ArchConfig
     from repro_torch.models import build_model
-    cfg = ArchConfig(**{k: ctx.config[k] for k in ARCH_KEYS
-                        if k in ctx.config})
-    model = build_model(cfg, device=ctx.device)
+    model = build_model(arch_config(ctx.config), device=ctx.device)
     sd = ctx.weights()
     model.load_state_dict(sd, strict=True)
     del sd
@@ -110,10 +112,12 @@ def logit_gaps(ctx: Context, picked: Sequence[Served]) -> Dict[str, float]:
     tokens. ``logit_gap``: the widest gap by which a served token's
     reference logit lies below the reference's best at its position. With
     a control, the gap of the token the control puts first at each of the
-    same positions instead."""
+    same positions instead. The reference reads the served weights through
+    a float32 view: the served weights, one leaf in float32 and the
+    reference's activations are held at a time."""
     ref = ctx.ref()
     reference.exact_float32()
-    P = reference.params(ctx.weights(), grad=False)
+    P = reference.Float32View(ctx.weights())
     free(ctx.device)
     worst, n = 0.0, 0
     for s in picked:

@@ -11,11 +11,12 @@ the configuration's bfloat16.
 """
 from __future__ import annotations
 
-import importlib
-from pathlib import Path
+from collections.abc import Mapping
 from types import ModuleType
 
 import torch
+
+from bench.cell import family_module
 
 PRECISIONS = ("f32", "fp8")
 
@@ -23,9 +24,7 @@ PRECISIONS = ("f32", "fp8")
 def family(name: str) -> ModuleType:
     """The reference module of a configuration's ``family``: the file
     ``reference/<family>.py``, so a family is added as a file."""
-    if not (Path(__file__).parent / f"{name}.py").is_file():
-        raise ValueError(f"no reference for family {name!r}")
-    return importlib.import_module(f"bench.reference.{name}")
+    return family_module("reference", name)
 
 
 def exact_float32() -> None:
@@ -77,3 +76,22 @@ def params(sd, grad: bool):
     """The reference's float32 copy of the benchmark's weights (a name ->
     tensor mapping), as leaves that take gradients where ``grad``."""
     return {n: t.detach().float().requires_grad_(grad) for n, t in sd.items()}
+
+
+class Float32View(Mapping):
+    """The benchmark's weights (a name -> tensor mapping) as float32 leaves
+    that take no gradient: each leaf is upcast when it is read and freed
+    once its reader lets it go, so no float32 copy of the whole model is
+    held. A leaf reads as the same numbers as in ``params(sd, False)``."""
+
+    def __init__(self, sd):
+        self.sd = sd
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.sd[name].detach().float()
+
+    def __iter__(self):
+        return iter(self.sd)
+
+    def __len__(self) -> int:
+        return len(self.sd)

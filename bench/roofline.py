@@ -15,11 +15,19 @@ Counting rules, the same whatever implements a step:
 - logits are counted where the work needs them: every position in training
   (the loss), the last position of a prompt (the next token); over the
   true vocabulary, not the padded one;
+- a routed-expert layer counts the experts a token is sent to, never all
+  of them;
 - each input byte is read once and each output byte written once.
+
+A family's layers are counted in ``counts/<family>.py``: its
+``layers_flops(c, B, S)`` gives every layer's projections and mixer over B
+sequences of S positions.
 """
 from __future__ import annotations
 
 from typing import Mapping, Tuple
+
+from bench.cell import family_module
 
 PEAK_FLOPS = 989e12      # bf16 dense, FLOP/s
 PEAK_BYTES = 3.35e12     # HBM3, bytes/s
@@ -31,32 +39,12 @@ def bound_s(flops: float, nbytes: float) -> float:
     return max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES)
 
 
-def hdim(c: Mapping) -> int:
-    return c.get("head_dim") or c["d_model"] // c["n_heads"]
-
-
-# --------------------------------------------------------------- dense GQA --
-def dense_layer_weights(c: Mapping) -> int:
-    """Matrix elements of one dense GQA layer (q, k, v, o; SwiGLU in, out)."""
-    d, H, G, D, f = (c["d_model"], c["n_heads"], c["n_kv_heads"], hdim(c),
-                     c["d_ff"])
-    return d * (H + 2 * G) * D + H * D * d + d * 2 * f + f * d
-
-
-def mixer_flops(c: Mapping, S: int) -> float:
-    """Causal attention's operations for one sequence of S positions in one
-    layer, beyond its projections."""
-    return 4.0 * c["n_heads"] * hdim(c) * S * (S + 1) / 2
-
-
 def forward_flops(c: Mapping, B: int, S: int, logit_positions: int) -> float:
     """One forward pass over B sequences of S positions, logits at
     ``logit_positions`` positions of each."""
-    L = c["n_layers"]
-    proj = 2.0 * dense_layer_weights(c) * B * S * L
-    mix = mixer_flops(c, S) * B * L
+    layers = family_module("counts", c["family"]).layers_flops(c, B, S)
     logits = 2.0 * c["d_model"] * c["vocab"] * B * logit_positions
-    return proj + mix + logits
+    return layers + logits
 
 
 def train_flops(c: Mapping, B: int, S: int) -> float:

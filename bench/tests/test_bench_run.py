@@ -9,6 +9,7 @@ import shutil
 import subprocess
 import sys
 import time
+import weakref
 from pathlib import Path
 
 import pytest
@@ -24,7 +25,7 @@ DENSE = dict(name="tiny-dense", family="dense", n_layers=2, d_model=64,
              n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128, vocab=250,
              pad_vocab_to=256, tie_embeddings=True, rope_theta=10000.0,
              rms_norm_eps=1e-6, dtype="bfloat16")
-OPT = json.loads((ROOT / "bench/traffic/train_b4_s1024.json").read_text()
+OPT = json.loads((ROOT / "bench/traffic/train_b16_s1024.json").read_text()
                  )["optimizer"]
 TRAIN = dict(driver="train", batch=2, seq_len=64, optimizer=OPT,
              traced_steps=1)
@@ -161,6 +162,39 @@ def test_serving_sound_control_and_faults(monkeypatch):
         with monkeypatch.context() as m:
             m.setattr(rt, "make_serve_step", fault)
             assert run(c)["correct"] is False, fault.__name__
+
+
+def test_serving_check_upcasts_a_leaf_at_a_time(monkeypatch):
+    """The serving check reads the served bfloat16 weights through a float32
+    view: the logit gaps of an eager float32 copy of every leaf, bit for
+    bit, with the control too, and no more than two upcast leaves alive at
+    once."""
+    from bench import harness, reference
+    picked = [harness.Served(("prompt", i), 2, i % 2, P, [7, 91, 3, 200])
+              for i, P in enumerate((32, 16, 32))]
+    alive, most = [], [0]
+
+    class Counted(reference.Float32View):
+        def __getitem__(self, name):
+            t = super().__getitem__(name)
+            if t.dtype != self.sd[name].dtype:
+                alive.append(weakref.ref(t))
+                most[0] = max(most[0], sum(r() is not None for r in alive))
+            return t
+
+    for control in (None, "fp8"):
+        ctx = harness.Context(cell(DENSE, PREFILL, SERVE_LIMITS), SEED, CPU,
+                              control)
+        with monkeypatch.context() as m:
+            m.setattr(reference, "Float32View", Counted)
+            got = harness.logit_gaps(ctx, picked)
+        with monkeypatch.context() as m:
+            m.setattr(reference, "Float32View",
+                      lambda sd: reference.params(sd, grad=False))
+            want = harness.logit_gaps(ctx, picked)
+        assert got == want and got["tokens_compared"] == 12
+        assert got["logit_gap"] > 0 or control is None
+    assert len(alive) > 2 * 8 * DENSE["n_layers"] and 1 <= most[0] <= 2
 
 
 def test_prefill_replay_is_fixed_and_follows_its_weights():

@@ -15,8 +15,8 @@ from bench import roofline, trace
 from bench.cell import metric_reader
 
 ROOT = Path(__file__).resolve().parents[2]
-CONFIG = {"n_layers": 2, "d_model": 64, "n_heads": 4, "n_kv_heads": 2,
-          "head_dim": 16, "d_ff": 128, "vocab": 250}
+CONFIG = {"family": "dense", "n_layers": 2, "d_model": 64, "n_heads": 4,
+          "n_kv_heads": 2, "head_dim": 16, "d_ff": 128, "vocab": 250}
 OPT = "repro_torch::train.optimizer"
 HEAD = "repro_torch::model.unembed"
 DECODE = "repro_torch::serve.decode_step"
